@@ -1,0 +1,42 @@
+"""particles-tpu, PyTorch port: Sequential Monte Carlo on an NVIDIA H100.
+
+The port of ``particles_tpu`` (JAX, TPU) to PyTorch and hand-written CUDA
+kernels, with the same module names and public surface, slice by slice
+(ROADMAP.md).  This package imports ``torch`` and never ``jax``.
+
+Ported so far: the bootstrap particle filter with systematic resampling —
+``SMC``, ``FeynmanKac``, ``state_space_models.Bootstrap``, ``kalman``,
+the ``Normal``/``MvNormal`` distributions, the weight numerics, the
+default collectors — and its two kernels in ``ops``.
+"""
+
+__version__ = "0.1.0"
+
+_CORE_EXPORTS = ("SMC", "FeynmanKac")
+
+_SUBMODULES = (
+    "collectors",
+    "convert",
+    "core",
+    "distributions",
+    "kalman",
+    "ops",
+    "resampling",
+    "state_space_models",
+    "utils",
+)
+
+
+def __getattr__(name):
+    # Lazy, as in particles_tpu: keeps submodule imports cheap and free of
+    # cycles while the package is partially loaded.
+    if name in _CORE_EXPORTS:
+        from particles_tpu_torch import core
+
+        return getattr(core, name)
+    if name in _SUBMODULES:
+        import importlib
+
+        return importlib.import_module(f"particles_tpu_torch.{name}")
+    raise AttributeError(
+        f"module 'particles_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,54 @@
+"""Carry model parameters and data, given as numpy arrays, into the port's
+objects, so that the JAX package and this one can be fed the same model.
+
+Pull the arrays from a JAX model with ``np.asarray(getattr(ssm, k))`` —
+for each ``default_params`` key of a ``LinearGauss``, or ``F``, ``G``,
+``covX``, ``covY``, ``mu0``, ``cov0`` of an ``MVLinearGauss`` — and pass
+them here.  This module imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from particles_tpu_torch import kalman
+from particles_tpu_torch import state_space_models as ssms
+
+__all__ = ["ssm_from_params", "bootstrap_from_numpy"]
+
+_MODELS = {"LinearGauss": kalman.LinearGauss,
+           "MVLinearGauss": kalman.MVLinearGauss}
+
+
+def ssm_from_params(cls_name, params, device=None):
+    """The port's model ``cls_name`` built from ``params`` (a dict of numpy
+    arrays).  Scalar parameters become Python floats (the float32 value
+    exactly, for float32 input); arrays become float32 tensors on
+    ``device``."""
+    try:
+        cls = _MODELS[cls_name]
+    except KeyError:
+        raise NotImplementedError(
+            f"model {cls_name!r} is not ported to particles_tpu_torch yet "
+            "(ROADMAP A.5)") from None
+    kwargs = {}
+    for k, v in params.items():
+        if v is None:
+            kwargs[k] = None
+            continue
+        a = np.asarray(v)
+        if a.ndim == 0 and cls is kalman.LinearGauss:
+            kwargs[k] = float(a)
+        else:
+            kwargs[k] = torch.tensor(a, dtype=torch.float32, device=device)
+    if cls is kalman.MVLinearGauss:
+        kwargs["device"] = device
+    return cls(**kwargs)
+
+
+def bootstrap_from_numpy(ssm, data, device=None):
+    """``Bootstrap(ssm, data)`` with ``data`` (numpy, (T,) or (T, dy)) as a
+    float32 tensor on ``device``."""
+    y = torch.tensor(np.asarray(data), dtype=torch.float32, device=device)
+    return ssms.Bootstrap(ssm=ssm, data=y)

@@ -1,0 +1,152 @@
+"""The resampling move by the z-form: CUDA kernel and plain version.
+
+Replaces the TPU kernel ``particles_tpu/ops/repeat_kernel.py::
+_make_visit_kernel`` in z-mode (public functions ``repeat_with_plan_cols``,
+``serve_by_z``, ``ancestors_by_z``, ``repeat_by_z``).  For ``z``, the
+inclusive cumsum of offspring counts ((N,) int32, nondecreasing,
+``z[-1] == M``), the move is::
+
+    Y[j] = X[A_j],   A_j = #{k : z_k <= j},   j < M
+
+On this card the kernel (``csrc/repeat_kernel.cu``) is bound by bytes: it
+reads z and X and writes Y.  One thread per output binary-searches z for
+``A_j`` and copies row ``A_j`` of every payload as raw bits, so payloads
+of any dtype with 1-, 2-, 4- or 8-byte elements, (N,) or (N, d, ...),
+come back exact; up to ``MAX_PAYLOADS`` of them share one launch, and the
+ancestor vector ``A`` (int64) can ride the same launch.  There is no
+visit plan and no f32 round trip: those answered TPU limits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from particles_tpu_torch import _build
+
+__all__ = ["MAX_PAYLOADS", "repeat_cols", "repeat_cols_plain",
+           "repeat_by_z", "serve_by_z", "ancestors_by_z"]
+
+MAX_PAYLOADS = 8   # payloads per launch; kMaxPayloads in the CUDA source
+
+_lib = None
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        lib = _build.load("repeat_kernel")
+        lib.pt_repeat_max_payloads.argtypes = []
+        lib.pt_repeat_max_payloads.restype = ctypes.c_int
+        lib.pt_repeat_by_z.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.pt_repeat_by_z.restype = ctypes.c_int
+        if lib.pt_repeat_max_payloads() != MAX_PAYLOADS:
+            raise RuntimeError("repeat_kernel.cu and repeat_kernel.py "
+                               "disagree on the payloads per launch")
+        _lib = lib
+    return _lib
+
+
+def _check(z, M, cols):
+    if not isinstance(z, torch.Tensor) or z.dtype != torch.int32:
+        raise TypeError("repeat_by_z: z must be an int32 tensor")
+    if z.ndim != 1 or z.shape[0] < 1 or not z.is_contiguous():
+        raise ValueError("repeat_by_z: z must be contiguous (N,) with N >= 1")
+    if not (isinstance(M, int) and 1 <= M < 2**31):
+        raise ValueError(f"repeat_by_z: M must be an int in [1, 2^31), "
+                         f"got {M!r}")
+    N = z.shape[0]
+    for x in cols:
+        if not isinstance(x, torch.Tensor) or x.ndim < 1 or x.shape[0] != N:
+            raise ValueError(f"repeat_by_z: every payload must have leading "
+                             f"dimension N={N}")
+        if x.device != z.device:
+            raise ValueError(f"repeat_by_z: payload on {x.device}, z on "
+                             f"{z.device}")
+        if not x.is_contiguous():
+            raise ValueError("repeat_by_z: payloads must be contiguous")
+        if x.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"repeat_by_z: no kernel for {x.dtype} "
+                            f"({x.element_size()}-byte elements)")
+
+
+def repeat_cols_plain(z, M, cols, want_anc=False):
+    """Plain PyTorch version of :func:`repeat_cols` (any device)."""
+    j = torch.arange(M, dtype=z.dtype, device=z.device)
+    A = torch.searchsorted(z, j, right=True).clamp_(max=z.shape[0] - 1)
+    return [x.index_select(0, A) for x in cols], (A if want_anc else None)
+
+
+def repeat_cols(z, M, cols, want_anc=False):
+    """Serve every payload in ``cols`` by ``z`` and optionally return the
+    ancestor vector: ``([Y_p], A or None)``, ``A`` int64.
+
+    Counterpart of ``repeat_with_plan_cols``: ``MAX_PAYLOADS`` payloads
+    share a launch, and ``A`` rides the first one (with no payload, one
+    ancestors-only launch).  A CPU ``z`` goes to
+    :func:`repeat_cols_plain`; a CUDA ``z`` to the kernel, which raises if
+    it cannot build or launch.
+    """
+    cols = list(cols)
+    _check(z, M, cols)
+    if z.device.type == "cpu":
+        return repeat_cols_plain(z, M, cols, want_anc)
+    if z.device.type != "cuda":
+        raise ValueError(f"repeat_by_z: no kernel for device {z.device}")
+    lib = _kernels()
+    N = z.shape[0]
+    served, A = [], None
+    for s in range(0, max(len(cols), 1), MAX_PAYLOADS):
+        chunk = cols[s:s + MAX_PAYLOADS]
+        anc_here = want_anc and s == 0
+        if not chunk and not anc_here:
+            break
+        ys = [torch.empty((M,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device) for x in chunk]
+        a = (torch.empty(M, dtype=torch.int64, device=z.device)
+             if anc_here else None)
+        P = len(chunk)
+        xs_arr = (ctypes.c_void_p * max(P, 1))(*[x.data_ptr() for x in chunk])
+        ys_arr = (ctypes.c_void_p * max(P, 1))(*[y.data_ptr() for y in ys])
+        w_arr = (ctypes.c_longlong * max(P, 1))(
+            *[x.numel() // N for x in chunk])
+        e_arr = (ctypes.c_int * max(P, 1))(*[x.element_size() for x in chunk])
+        with torch.cuda.device(z.device):
+            stream = torch.cuda.current_stream(z.device).cuda_stream
+            err = lib.pt_repeat_by_z(
+                z.data_ptr(), N, M, P, ctypes.addressof(xs_arr),
+                ctypes.addressof(ys_arr), ctypes.addressof(w_arr),
+                ctypes.addressof(e_arr),
+                a.data_ptr() if a is not None else None, stream)
+        if err != 0:
+            raise RuntimeError(f"repeat_by_z kernel launch failed: CUDA "
+                               f"error {err}")
+        repeat_cols.launches += 1
+        served.extend(ys)
+        if anc_here:
+            A = a
+    return served, A
+
+
+repeat_cols.launches = 0   # kernel launches, for tracing the path
+
+
+def repeat_by_z(x, z, M):
+    """``Y[j] = X[#{k: z_k <= j}]`` for one payload."""
+    return repeat_cols(z, M, [x])[0][0]
+
+
+def serve_by_z(z, M):
+    """Serve function for ``z``: maps a leading-dim-N payload to its
+    resampled copy (one launch per call; batch with :func:`repeat_cols`)."""
+    return lambda leaf: repeat_by_z(leaf, z, M)
+
+
+def ancestors_by_z(z, M):
+    """Sorted ancestor vector ``A[j] = #{k: z_k <= j}`` (int64)."""
+    return repeat_cols(z, M, [], want_anc=True)[1]
