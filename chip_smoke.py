@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``particles_tpu_torch``) on one NVIDIA GPU and
-check every kernel of its main path against its plain version.
+check every kernel of its paths against its plain version.
 
 Run from the repository root, on a machine with a CUDA card and nvcc::
 
@@ -29,8 +29,29 @@ not 0 and no result line is printed.  It exits with an error at once when
    and within 0.5 of the float64 Kalman logLt (its standard deviation is
    about sqrt(T * 2.7 / N) = 0.05); each kernel launched once per
    resampling step.  Two runs, the second warm and timed.
-5. Kernel and plain-version times at N = 2^20 (CUDA events, median of 25
-   batches of 10 calls), then the kernels line and the result line.
+5. Kernel B3 (monotone normalised cumsum) against its plain version and a
+   float64 oracle, at phase 2's sizes and weights: nondecreasing,
+   ``|cs[-1] - 1| < 1e-6``, within N 2^-31 + 1e-6 of both.
+6. Kernel B5 (sorted-merge rank count) against its plain version, exact:
+   sorted uniforms, uniforms tied with cs values, L = 2N + 1 and L = N/2 + 1
+   uniforms; and z nondecreasing on uniforms one ulp out of order.
+7. Kernel B4 (move by the inverse CDF) against its plain version, exact:
+   unsorted and sorted uniforms, M = 4N, phase 3's payloads, the fused
+   form with ancestors and ancestors alone.
+8. Kernel B6 (running max) against ``torch.cummax``, exact: int32 over
+   the whole range (negative values) at every N.
+9. Every resampling scheme: ``multiSMC(fk, N=2^20, resampling=[six
+   schemes], nruns=1)`` for T=1000 with numpy data and no device (so the
+   port's default puts it on the card), after a warm-up at T=20.  Each
+   logLt within 0.5 of Kalman; each kernel launched once per resampling
+   step in its scheme's combination (systematic B1+B2, stratified B3+B2,
+   multinomial and residual B3+B5+B2, ssp B2, killing B3+B4), B6 never
+   (every CDF the port builds is monotone by construction).  Then
+   ``idiotic`` at T=50: it runs and launches no kernel.
+10. Kernel times at N = 2^20 (CUDA events, median of 25 batches of 10
+    calls) beside the plain version's, the one PyTorch call that computes
+    the same function where there is one, and the bound, then the kernels
+    line and the result line.
 """
 
 import json
@@ -44,6 +65,22 @@ N_MAIN = 2 ** 20
 T_MAIN = 1000
 RHO, SIGX, SIGY = 0.9, 1.0, 0.2
 LOGLT_TOL = 0.5
+SCHEMES = ["systematic", "stratified", "multinomial", "residual", "ssp",
+           "killing"]
+# the kernels each scheme launches once per resampling step (ops.KERNELS)
+SCHEME_KERNELS = {
+    "systematic": {"systematic_z", "repeat_by_z"},
+    "stratified": {"normalised_cumsum", "repeat_by_z"},
+    "multinomial": {"normalised_cumsum", "merge_rank_counts", "repeat_by_z"},
+    "residual": {"normalised_cumsum", "merge_rank_counts", "repeat_by_z"},
+    "ssp": {"repeat_by_z"},
+    "killing": {"normalised_cumsum", "repeat_by_su"},
+}
+T_IDIOTIC = 50
+# the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
+# outside the tensor cores (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def _emit(obj):
@@ -110,7 +147,7 @@ def main():
                  "this script needs a CUDA card")
     from particles_tpu_torch import _build, kalman, ops
     from particles_tpu_torch import state_space_models as ssms
-    from particles_tpu_torch.core import SMC
+    from particles_tpu_torch.core import SMC, multiSMC
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -258,34 +295,262 @@ def main():
            "warm_wall_s": wall, "particle_steps_per_s": N_MAIN * T_MAIN / wall,
            "ms_per_step": 1000.0 * wall / T_MAIN})
 
-    # -- 5. kernel times ----------------------------------------------------
-    W = torch.from_numpy(_dirichlet_like(rng, "dirichlet1", N_MAIN)).to(dev)
+    # -- 5. B3 against its plain version and a float64 oracle -------------
+    b3_err = 0.0
+    n_cases = 0
+    cdfs = {}
+    for N in Ns:
+        for wkind in kinds:
+            W_np = _dirichlet_like(rng, wkind, N)
+            W = torch.from_numpy(W_np).to(dev)
+            cs = ops.normalised_cumsum_exact(W)
+            cp = ops.normalised_cumsum_plain(W)
+            torch.cuda.synchronize()
+            csc, cpc = cs.cpu().numpy(), cp.cpu().numpy()
+            W64 = W_np.astype(np.float64)
+            co = np.cumsum(W64) / W64.sum()
+            tol = N * 2.0 ** -31 + 1e-6
+            tag = f"B3 N={N} {wkind}"
+            _check(cs.dtype == torch.float32 and csc.shape == (N,),
+                   f"{tag}: shape")
+            _check(bool(np.all(np.diff(csc) >= 0)), f"{tag}: not "
+                                                    f"nondecreasing")
+            _check(abs(csc[-1] - 1.0) < 1e-6, f"{tag}: cs[-1] = {csc[-1]}")
+            dp = float(np.abs(csc - cpc).max())
+            do = float(np.abs(csc - co).max())
+            _check(dp < tol, f"{tag}: |cs - plain| = {dp} >= {tol}")
+            _check(do < tol, f"{tag}: |cs - oracle| = {do} >= {tol}")
+            b3_err = max(b3_err, dp)
+            n_cases += 1
+            cdfs[(N, wkind)] = cs
+    _emit({"phase": 5, "kernel": "normalised_cumsum", "cases": n_cases,
+           "max_abs_err_vs_plain": b3_err,
+           "tolerance": "nondecreasing, |cs[-1] - 1| < 1e-6, "
+                        "|dcs| < N 2^-31 + 1e-6 vs plain and float64"})
+
+    # -- 6. B5 against its plain version, exact ------------------------------
+    n_cases = 0
+    for (N, wkind), cs in cdfs.items():
+        cases = []
+        for L in (N, 2 * N + 1, N // 2 + 1):
+            cases.append((f"L={L}", torch.rand(L, device=dev).sort().values,
+                          L))
+        tied = torch.cat([torch.rand(N - N // 2, device=dev),
+                          cs[torch.randint(0, N, (N // 2,), device=dev)]])
+        cases.append(("ties", tied.sort().values, N))
+        for form, su, M in cases:
+            z = ops.merge_rank_counts(su, cs, M)
+            zp = ops.merge_rank_counts_plain(su, cs, M)
+            torch.cuda.synchronize()
+            _check(z.dtype == torch.int32 and torch.equal(z, zp),
+                   f"B5 N={N} {wkind} {form}: differs from plain")
+            n_cases += 1
+        dip = torch.rand(N, device=dev).sort().values
+        if N > 2:
+            dip[1::7] = torch.nextafter(dip[0:-1:7],
+                                        torch.zeros((), device=dev))
+        z = ops.merge_rank_counts(dip, cs, N)
+        _check(bool((z[1:] >= z[:-1]).all()),
+               f"B5 N={N} {wkind}: z not nondecreasing on a dip")
+    _emit({"phase": 6, "kernel": "merge_rank_counts", "cases": n_cases,
+           "max_abs_err_vs_plain": 0, "tolerance": "exact"})
+
+    # -- 7. B4 against its plain version, exact ------------------------------
+    n_cases = 0
+    for (N, wkind), cs in cdfs.items():
+        if wkind != "dirichlet0.05":
+            continue
+        cs1 = cs.clone()
+        cs1[-1] = 1.0
+        cols = [
+            torch.randn(N, device=dev),
+            torch.randn(N, device=dev, dtype=torch.float64),
+            torch.randint(2 ** 24, 2 ** 31 - 1, (N,), device=dev,
+                          dtype=torch.int32),
+            torch.randint(-2 ** 62, 2 ** 62, (N,), device=dev,
+                          dtype=torch.int64),
+            torch.randint(-128, 127, (N,), device=dev, dtype=torch.int8),
+            torch.randn(N, 2, device=dev),
+            torch.randn(N, 3, device=dev).to(torch.float16),
+        ]
+        u = torch.rand(N, device=dev)
+        forms = [("unsorted", u), ("sorted", u.sort().values),
+                 ("M=4N", torch.rand(4 * N, device=dev))]
+        for form, su in forms:
+            M = su.shape[0]
+            ys, A = ops.repeat_cols_su(su, cs1, M, cols, want_anc=True)
+            A_only = ops.ancestors_by_su(su, cs1)
+            yps, Ap = ops.repeat_cols_su_plain(su, cs1, M, cols,
+                                               want_anc=True)
+            torch.cuda.synchronize()
+            tag = f"B4 N={N} {form}"
+            _check(A.dtype == torch.int64 and torch.equal(A, Ap)
+                   and torch.equal(A_only, Ap), f"{tag}: ancestors differ")
+            for out, out_plain in zip(ys, yps, strict=True):
+                _check(out.dtype == out_plain.dtype
+                       and torch.equal(out, out_plain),
+                       f"{tag}: {out.dtype} payload differs")
+            n_cases += 1
+    _emit({"phase": 7, "kernel": "repeat_by_su", "cases": n_cases,
+           "max_abs_err_vs_plain": 0, "tolerance": "exact"})
+
+    # -- 8. B6 against torch.cummax, exact -----------------------------------
+    for N in Ns:
+        z = torch.randint(-2 ** 31, 2 ** 31 - 1, (N,), device=dev,
+                          dtype=torch.int32)
+        zmax = ops.running_max(z)
+        zmax_plain = ops.running_max_plain(z)
+        torch.cuda.synchronize()
+        _check(zmax.dtype == torch.int32 and torch.equal(zmax, zmax_plain),
+               f"B6 N={N}: differs from plain")
+    _emit({"phase": 8, "kernel": "running_max", "cases": len(Ns),
+           "max_abs_err_vs_plain": 0, "tolerance": "exact"})
+
+    # -- 9. every resampling scheme through multiSMC -------------------------
+    def zero_counts():
+        for f in ops.KERNELS.values():
+            f.launches = 0
+
+    def read_counts():
+        return {name: f.launches for name, f in ops.KERNELS.items()}
+
+    multiSMC(fk=ssms.Bootstrap(ssm=ssm, data=y[:20]), N=N_MAIN,
+             resampling=SCHEMES, nruns=1)      # warm-up of every scheme
+    snaps = []
+
+    def snapshot(res):
+        snaps.append(read_counts())
+        return res
+
+    fk_np = ssms.Bootstrap(ssm=ssm, data=y)    # numpy data, no device
+    _check(fk_np.data.device.type == "cuda", "numpy data not on the card")
+    zero_counts()
+    snaps.append(read_counts())
+    runs = multiSMC(fk=fk_np, N=N_MAIN, resampling=SCHEMES, nruns=1,
+                    out_func=snapshot)
+    multi_launches = read_counts()
+    schemes_out = {}
+    for k, entry in enumerate(runs):
+        scheme, res = entry["resampling"], entry["output"]
+        n_rs = int(res.rs_flags.sum())
+        logLt = float(res.logLt)
+        launched = {name: snaps[k + 1][name] - snaps[k][name]
+                    for name in ops.KERNELS}
+        _check(np.isfinite(logLt) and abs(logLt - kf_logLt) < LOGLT_TOL,
+               f"{scheme}: logLt {logLt}, Kalman {kf_logLt}")
+        _check(res.lw.device.type == "cuda", f"{scheme}: not on the card")
+        for name, n in launched.items():
+            want = n_rs if name in SCHEME_KERNELS[scheme] else 0
+            _check(n == want and n_rs > 0,
+                   f"{scheme}: {name} launched {n} times, {n_rs} "
+                   f"resampling steps, expected {want}")
+        schemes_out[scheme] = {
+            "logLt": logLt, "abs_diff": abs(logLt - kf_logLt),
+            "resampling_steps": n_rs, "launches": launched,
+            "warm_wall_s": res.cpu_time,
+            "ms_per_step": 1000.0 * res.cpu_time / T_MAIN}
+    zero_counts()
+    idiot = multiSMC(fk=ssms.Bootstrap(ssm=ssm, data=y[:T_IDIOTIC]),
+                     N=N_MAIN, resampling="idiotic", nruns=1)[0]["output"]
+    _check(all(n == 0 for n in read_counts().values()),
+           f"idiotic launched kernels: {read_counts()}")
+    _emit({"phase": 9, "N": N_MAIN, "T": T_MAIN, "kalman_logLt": kf_logLt,
+           "tolerance": LOGLT_TOL, "nvidia_smi": smi, "schemes": schemes_out,
+           "launches": multi_launches,
+           "idiotic": {"T": T_IDIOTIC, "logLt": float(idiot.logLt),
+                       "resampling_steps": int(idiot.rs_flags.sum()),
+                       "warm_wall_s": idiot.cpu_time}})
+
+    # -- 10. kernel times -----------------------------------------------------
+    N = M = N_MAIN
+    W = torch.from_numpy(_dirichlet_like(rng, "dirichlet1", N)).to(dev)
     u = torch.tensor(0.37, dtype=torch.float32, device=dev)
-    z = ops.systematic_z_fused(W, u, N_MAIN)
-    x = torch.randn(N_MAIN, device=dev)
-    times = {
+    z = ops.systematic_z_fused(W, u, M)
+    x = torch.randn(N, device=dev)
+    j = torch.arange(M, dtype=torch.int32, device=dev)
+    cs = ops.normalised_cumsum_exact(W)
+    cs1 = cs.clone()
+    cs1[-1] = 1.0
+    uu = torch.rand(M, device=dev)
+    su = uu.sort().values
+    zi = torch.randint(-2 ** 31, 2 ** 31 - 1, (N,), device=dev,
+                       dtype=torch.int32)
+    log2n = int(np.ceil(np.log2(N + 1)))
+    # name: (kernel, plain, library call or None, bytes, operations)
+    work = {
         "systematic_z": (
-            _time_ms(torch, lambda: ops.systematic_z_fused(W, u, N_MAIN)),
-            _time_ms(torch, lambda: ops.systematic_z_plain(W, u, N_MAIN))),
+            lambda: ops.systematic_z_fused(W, u, M),
+            lambda: ops.systematic_z_plain(W, u, M), None,
+            8 * N, 7 * N),
         "repeat_by_z": (
-            _time_ms(torch, lambda: ops.repeat_cols(z, N_MAIN, [x])),
-            _time_ms(torch, lambda: ops.repeat_cols_plain(z, N_MAIN, [x]))),
+            lambda: ops.ancestors_by_z(z, M),
+            lambda: ops.repeat_cols_plain(z, M, [], want_anc=True),
+            lambda: torch.searchsorted(z, j, right=True),
+            4 * N + 8 * M, M * log2n),
+        "normalised_cumsum": (
+            lambda: ops.normalised_cumsum_exact(W),
+            lambda: ops.normalised_cumsum_plain(W),
+            lambda: torch.cumsum(W, 0),
+            8 * N, 5 * N),
+        "repeat_by_su": (
+            lambda: ops.ancestors_by_su(uu, cs1),
+            lambda: ops.repeat_cols_su_plain(uu, cs1, M, [], want_anc=True),
+            lambda: torch.searchsorted(cs1, uu),
+            4 * M + 4 * N + 8 * M, M * log2n),
+        "merge_rank_counts": (
+            lambda: ops.merge_rank_counts(su, cs, M),
+            lambda: ops.merge_rank_counts_plain(su, cs, M),
+            lambda: torch.searchsorted(su, cs, right=True),
+            4 * M + 8 * N, N * log2n),
+        "running_max": (
+            lambda: ops.running_max(zi),
+            lambda: ops.running_max_plain(zi),
+            lambda: torch.cummax(zi, 0),
+            8 * N, N),
     }
     meta = {
-        "systematic_z": ("particles_tpu_torch/csrc/z_kernel.cu",
-                         "particles_tpu/ops/z_kernel.py:93", err_plain),
-        "repeat_by_z": ("particles_tpu_torch/csrc/repeat_kernel.cu",
-                        "particles_tpu/ops/repeat_kernel.py:70", b2_err),
+        "systematic_z": ("z_kernel.cu", "particles_tpu/ops/z_kernel.py:93",
+                         err_plain, "main path"),
+        "repeat_by_z": ("repeat_kernel.cu",
+                        "particles_tpu/ops/repeat_kernel.py:70", b2_err,
+                        "main path"),
+        "normalised_cumsum": ("z_kernel.cu",
+                              "particles_tpu/ops/z_kernel.py:106", b3_err,
+                              "multiSMC"),
+        "repeat_by_su": ("repeat_kernel.cu",
+                         "particles_tpu/ops/repeat_kernel.py:70", 0,
+                         "multiSMC"),
+        "merge_rank_counts": ("merge_rank_kernel.cu",
+                              "particles_tpu/ops/merge_rank_kernel.py:41", 0,
+                              "multiSMC"),
+        "running_max": ("cummax_kernel.cu",
+                        "particles_tpu/ops/cummax_kernel.py:40", 0,
+                        "multiSMC"),
     }
     kernels = []
-    for name, (ms, plain_ms) in times.items():
-        source, replaces, err = meta[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "max_err": err, "ms": ms,
-                        "kernel_ms": ms, "plain_ms": plain_ms})
-    _emit({"phase": 5, "N": N_MAIN, "nvidia_smi": smi,
-           "timing": "CUDA events, median of 25 batches of 10 calls"})
+    for name, (kern, plain, lib, nbytes, nops) in work.items():
+        source, replaces, err, path = meta[name]
+        ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+        by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        by_ops = 1e3 * nops / OPS_PER_S
+        path_launches = launches if path == "main path" else multi_launches
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"particles_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": path_launches[name],
+            "launches_path": path, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None if lib is None else _time_ms(torch, lib)})
+    b2_col_ms = _time_ms(torch, lambda: ops.repeat_cols(z, M, [x]))
+    b2_col_plain_ms = _time_ms(torch,
+                               lambda: ops.repeat_cols_plain(z, M, [x]))
+    _emit({"phase": 10, "N": N_MAIN, "nvidia_smi": smi,
+           "timing": "CUDA events, median of 25 batches of 10 calls",
+           "forms": "B2 and B4 ancestors only; B4 on unsorted uniforms",
+           "repeat_by_z_one_f32_column": {"ms": b2_col_ms,
+                                          "plain_ms": b2_col_plain_ms},
+           "bound": "max(bytes / 3.35 TB/s, operations / 67 TOP/s)"})
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -4,15 +4,17 @@ The port of ``particles_tpu`` (JAX, TPU) to PyTorch and hand-written CUDA
 kernels, with the same module names and public surface, slice by slice
 (ROADMAP.md).  This package imports ``torch`` and never ``jax``.
 
-Ported so far: the bootstrap particle filter with systematic resampling —
-``SMC``, ``FeynmanKac``, ``state_space_models.Bootstrap``, ``kalman``,
-the ``Normal``/``MvNormal`` distributions, the weight numerics, the
-default collectors — and its two kernels in ``ops``.
+Ported so far: the bootstrap particle filter with every resampling
+scheme — ``SMC``, ``multiSMC``, ``FeynmanKac``,
+``state_space_models.Bootstrap``, ``kalman``, the ``Normal``/``MvNormal``
+distributions, the weight numerics and resampling registries, the
+default collectors — and the six kernels of ``ops``.  Entry points run on
+the current CUDA card unless given ``device="cpu"`` or CPU tensors.
 """
 
 __version__ = "0.1.0"
 
-_CORE_EXPORTS = ("SMC", "FeynmanKac")
+_CORE_EXPORTS = ("SMC", "FeynmanKac", "multiSMC")
 
 _SUBMODULES = (
     "collectors",

@@ -4,7 +4,8 @@ objects, so that the JAX package and this one can be fed the same model.
 Pull the arrays from a JAX model with ``np.asarray(getattr(ssm, k))`` —
 for each ``default_params`` key of a ``LinearGauss``, or ``F``, ``G``,
 ``covX``, ``covY``, ``mu0``, ``cov0`` of an ``MVLinearGauss`` — and pass
-them here.  This module imports no JAX.
+them here.  Tensors go to ``device``, by default the current CUDA card
+(with no card, pass ``device="cpu"``).  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from particles_tpu_torch import kalman
 from particles_tpu_torch import state_space_models as ssms
+from particles_tpu_torch.utils import resolve_device
 
 __all__ = ["ssm_from_params", "bootstrap_from_numpy"]
 
@@ -32,6 +34,7 @@ def ssm_from_params(cls_name, params, device=None):
         raise NotImplementedError(
             f"model {cls_name!r} is not ported to particles_tpu_torch yet "
             "(ROADMAP A.5)") from None
+    device = resolve_device(device)
     kwargs = {}
     for k, v in params.items():
         if v is None:
@@ -50,5 +53,4 @@ def ssm_from_params(cls_name, params, device=None):
 def bootstrap_from_numpy(ssm, data, device=None):
     """``Bootstrap(ssm, data)`` with ``data`` (numpy, (T,) or (T, dy)) as a
     float32 tensor on ``device``."""
-    y = torch.tensor(np.asarray(data), dtype=torch.float32, device=device)
-    return ssms.Bootstrap(ssm=ssm, data=y)
+    return ssms.Bootstrap(ssm=ssm, data=np.asarray(data), device=device)

@@ -1,18 +1,20 @@
-"""Feynman-Kac models and the SMC engine (PyTorch port, first slice).
+"""Feynman-Kac models and the SMC engine (PyTorch port).
 
 Counterpart of ``particles_tpu/core.py``: :class:`FeynmanKac`, the step
-logic of ``_step0``/``_step`` and the :class:`SMC` class with ``run()``
-and the iterator protocol.  Where the JAX package compiles the time loop
-into one ``lax.scan`` and picks the resampling branch with ``lax.cond``,
-this engine is an eager Python loop that decides on the host: each step
-syncs once, on ``bool(ESS < N * ESSrmin)``, and then runs only the branch
-it needs.  Systematic resampling goes through the two CUDA kernels of
-:mod:`particles_tpu_torch.ops` on the card (their plain versions on the
-CPU).
+logic of ``_step0``/``_step``, the :class:`SMC` class with ``run()`` and
+the iterator protocol, and ``multiSMC``.  Where the JAX package compiles
+the time loop into one ``lax.scan`` and picks the resampling branch with
+``lax.cond``, this engine is an eager Python loop that decides on the
+host: each step syncs once, on ``bool(ESS < N * ESSrmin)``, and then runs
+only the branch it needs.  Every resampling scheme of the JAX package is
+ported; the sorted ones serve the particles by their z-form through the
+CUDA kernels of :mod:`particles_tpu_torch.ops` on the card (their plain
+versions on the CPU), the others (``killing``, ``idiotic``) gather by
+their ancestors.
 
-Ported: systematic resampling, adaptive (ESS) or custom
-``time_to_resample``, stateless collectors.  Not yet: the other schemes,
-SQMC, history, auxiliary filters, samplers and ``multiSMC`` (ROADMAP
+Ported: every resampling scheme, adaptive (ESS) or custom
+``time_to_resample``, stateless collectors, ``multiSMC`` (one run after
+another).  Not yet: SQMC, history, auxiliary filters and samplers (ROADMAP
 queue A); asking for one raises ``NotImplementedError``.
 """
 
@@ -27,7 +29,7 @@ from particles_tpu_torch import ops
 from particles_tpu_torch import resampling as rs
 from particles_tpu_torch import utils
 
-__all__ = ["FeynmanKac", "SMC", "StepView"]
+__all__ = ["FeynmanKac", "SMC", "SMCResult", "StepView", "multiSMC"]
 
 
 class FeynmanKac:
@@ -132,6 +134,14 @@ def _serve(X, z, N, want_anc):
     return Xp, A
 
 
+def _gather(X, A):
+    """Select ancestors ``A`` of every leaf of ``X`` (a tensor or a dict of
+    tensors)."""
+    if isinstance(X, dict):
+        return {k: v.index_select(0, A) for k, v in X.items()}
+    return X.index_select(0, A)
+
+
 def _step0(fk, gen, N, ESSrmin, summaries, need_gen):
     """Step t=0."""
     X = fk.M0(gen, N)
@@ -150,10 +160,13 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     """One step for t >= 1.
 
     The resampling decision is taken on the host (one sync); a resampling
-    step serves the particles by the scheme's z-form and resets the
-    log-weights to zero.  The log-likelihood increment is ``log_mean`` of
-    the new weights after resampling, and otherwise its difference from
-    the carried ``log_mean``.
+    step serves the particles by the scheme's z-form (sorted-ancestor
+    schemes, through B2) or gathers them by its ancestors (``killing``,
+    ``idiotic``), and resets the log-weights to zero.  No scheme reads a
+    device value on the host, except the sequential SSP at N <
+    ``resampling._SSP_BLOCKED_MIN``.  The log-likelihood increment is
+    ``log_mean`` of the new weights after resampling, and otherwise its
+    difference from the carried ``log_mean``.
     """
     X, lw = carry.X, carry.lw
     wgts = rs.Weights(lw)
@@ -162,8 +175,12 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
                         ESSrmin=ESSrmin)
     rs_flag = bool(fk.time_to_resample(pre_view))   # the step's host sync
     if rs_flag:
-        z = rs.resampling_z(scheme, gen, wgts.W, M=N)
-        Xp, A = _serve(X, z, N, need_gen)
+        if scheme in rs.rs_counts_funcs:
+            z = rs.resampling_z(scheme, gen, wgts.W, M=N)
+            Xp, A = _serve(X, z, N, need_gen)
+        else:
+            A = rs.resampling(scheme, gen, wgts.W, M=N)
+            Xp = _gather(X, A)
         lw = torch.zeros_like(lw)
     else:
         Xp = X
@@ -185,13 +202,6 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     return carry, view, outs
 
 
-def _as_device(device):
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 class SMC:
     """A particle filter or SMC algorithm::
 
@@ -200,13 +210,16 @@ class SMC:
         pf.logLt, pf.summaries.ESSs, pf.X, pf.W
 
     plus the iterator protocol (``next(pf)`` advances one step; ``run()``
-    continues from there).  ``device`` defaults to the device of
-    ``fk.data``; every draw comes from one ``torch.Generator`` on that
-    device, seeded by ``seed`` unless ``generator`` is given.
+    continues from there).  ``resampling`` names a scheme of
+    ``resampling.rs_funcs``.  ``device`` defaults to the device of
+    ``fk.data`` when that is a tensor, else of ``generator`` when one is
+    given, else the current CUDA card; with no card, pass
+    ``device="cpu"``.  Every draw comes from one ``torch.Generator`` on
+    that device, seeded by ``seed`` unless ``generator`` is given.
 
-    ``qmc``, ``store_history`` and the resampling schemes other than
-    ``systematic`` exist in the JAX package and are not ported yet: asking
-    for them raises ``NotImplementedError`` (ROADMAP queue A).
+    ``qmc`` and ``store_history`` exist in the JAX package and are not
+    ported yet: asking for them raises ``NotImplementedError`` (ROADMAP
+    queue A).
     """
 
     def __init__(self, fk=None, N=100, seed=0, generator=None, device=None,
@@ -219,8 +232,8 @@ class SMC:
             raise NotImplementedError(
                 "store_history (particle history and genealogy) is not "
                 "ported to particles_tpu_torch yet (ROADMAP A.3)")
-        if resampling not in rs.rs_z_funcs:
-            raise rs._unported(resampling)
+        if resampling not in rs.rs_funcs:
+            raise ValueError(f"{resampling} is not a valid resampling scheme")
         if getattr(fk, "is_sampler", False):
             raise NotImplementedError(
                 "SMC samplers are not ported to particles_tpu_torch yet "
@@ -231,12 +244,15 @@ class SMC:
                 "particles_tpu_torch yet (ROADMAP A.5)")
         if device is None:
             data = getattr(fk, "data", None)
-            device = data.device if isinstance(data, torch.Tensor) else "cpu"
-        self.device = _as_device(device)
+            if isinstance(data, torch.Tensor):
+                device = data.device
+            elif generator is not None:
+                device = generator.device
+        self.device = utils.resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(seed)
-        elif _as_device(generator.device) != self.device:
+        elif utils.resolve_device(generator.device) != self.device:
             raise ValueError(f"generator on {generator.device}, run on "
                              f"{self.device}")
         self.gen = generator
@@ -304,3 +320,67 @@ class SMC:
         step."""
         for _ in self:
             pass
+
+
+class SMCResult:
+    """Light-weight result of one run inside :func:`multiSMC`: ``logLt``,
+    the final log-weights ``lw`` (and ``wgts``, ``W`` from them), each
+    collector's record as an attribute (``summaries`` is the result
+    itself, so ``res.summaries.ESSs`` reads as for an SMC), and
+    ``cpu_time``, the run's wall time."""
+
+    def __init__(self, logLt, summaries_dict, lw=None, cpu_time=None):
+        self.logLt = logLt
+        self.lw = lw
+        self.cpu_time = cpu_time
+        for name, val in summaries_dict.items():
+            setattr(self, name, val)
+        self.summaries = self
+
+    @property
+    def wgts(self):
+        return rs.Weights(self.lw) if self.lw is not None else None
+
+    @property
+    def W(self):
+        return None if self.lw is None else rs.exp_and_normalise(self.lw)
+
+
+def multiSMC(fk=None, N=100, qmc=False, resampling="systematic", ESSrmin=0.5,
+             nruns=10, nprocs=0, collect=None, seed=0, out_func=None, **args):
+    """Run many independent SMC algorithms: ``nruns`` replicates, crossed
+    with the cartesian product of every keyword argument given as a list
+    (``resampling=['multinomial', 'systematic']``) or as a dict of name ->
+    value (``fk={'boot': fk_b, 'other': fk_o}``).  Any other :class:`SMC`
+    option (``device``, ...) passes through.
+
+    Returns a list of dicts holding the varying options (a dict's names),
+    ``'run'`` and ``'output'``: an :class:`SMCResult`, or what
+    ``out_func`` makes of it.  Run ``r`` of every combination draws from
+    its own generator, seeded from ``seed`` and ``r`` alone, so the
+    combinations share their random streams as in the JAX package.  This
+    port runs one :class:`SMC` after another; ``nprocs`` is accepted and
+    ignored.
+    """
+    del nprocs
+    base_args = dict(fk=fk, N=N, qmc=qmc, resampling=resampling,
+                     ESSrmin=ESSrmin, **args)
+    varying = [k for k, v in base_args.items() if isinstance(v, (list, dict))]
+    labels_list, values_list = utils.cartesian_args(base_args)
+    seeder = torch.Generator().manual_seed(seed)
+    run_seeds = torch.randint(0, 2**62, (nruns,), generator=seeder).tolist()
+    results = []
+    for labels, values in zip(labels_list, values_list):
+        for r, run_seed in enumerate(run_seeds):
+            pf = SMC(collect=collect, seed=run_seed, **values)
+            pf.run()
+            sm = ({} if pf.summaries is None else
+                  {c.summary_name: getattr(pf.summaries, c.summary_name)
+                   for c in pf.summaries._collectors})
+            res = SMCResult(pf.logLt, sm, lw=pf.wgts.lw,
+                            cpu_time=pf.cpu_time)
+            entry = {k: labels[k] for k in varying}
+            entry["run"] = r
+            entry["output"] = res if out_func is None else out_func(res)
+            results.append(entry)
+    return results

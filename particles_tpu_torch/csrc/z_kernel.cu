@@ -1,28 +1,37 @@
-// Systematic-resampling z-form on Hopper (sm_90a).
+// Fixed-point cumulative weights on Hopper (sm_90a): the systematic z-form
+// (B1) and the monotone normalised cumsum (B3).
 //
-// Replaces particles_tpu/ops/z_kernel.py::_z_kernel (launched by _z_pallas,
-// public function systematic_z_fused).  It computes, for weights W >= 0,
+// B1 replaces particles_tpu/ops/z_kernel.py::_z_kernel (launched by
+// _z_pallas, public function systematic_z_fused); B3 replaces _cs_kernel
+// (launched by _cs_pallas, public function normalised_cumsum_exact).  Both
+// compute, for weights W >= 0,
 //
 //   S     = sum(W)                              (float, rounded to f32)
 //   scale = 2^30 / max(S, 1e-37)                (f32)
 //   q_i   = round_half_even(W_i * scale)        (int64)
-//   Q     = sum(q),  minv = M / max(Q, 1)       (f32)
+//   Q     = sum(q)                              (exact int64)
 //   csq   = inclusive cumsum(q)                 (exact int64)
-//   z_i   = clip(floor(f32(csq_i) * minv - u) + 1, 0, M),  z[N-1] = M
+//
+// and differ only in the epilogue:
+//
+//   B1: minv = M / max(Q, 1) (f32),
+//       z_i  = clip(floor(f32(csq_i) * minv - u) + 1, 0, M),  z[N-1] = M
+//   B3: inv  = 1 / max(Q, 1) (f32),  cs_i = f32(csq_i) * inv
 //
 // Each stage after the integer cumsum (int -> f32 convert, multiply by a
-// positive constant, subtract a constant, floor) is monotone, so z is
-// nondecreasing by construction.  The stages are written with explicit
+// positive constant, subtract a constant, floor) is monotone, so z and cs
+// are nondecreasing by construction.  The stages are written with explicit
 // round-to-nearest intrinsics: nvcc would otherwise contract the
 // multiply-subtract into one FMA, which rounds once instead of twice and
 // would no longer be the JAX package's arithmetic.
 //
-// What bounds it: bytes.  It reads W three times (the S pass, the block-sum
-// pass, the z pass) and writes z: 16 bytes a particle, 16 MB at N = 2^20,
-// where W (4 MB) stays in the 50 MB L2 between passes.  The TPU kernel
-// carried the running prefix through the sequential grid in SMEM; CUDA
-// blocks run in no order, so the prefix comes from a separate scan of the
-// per-block totals instead.  Five launches, no atomics, deterministic.
+// What bounds them: bytes.  Each reads W three times (the S pass, the
+// block-sum pass, the epilogue pass) and writes one 4-byte output: 16 bytes
+// a particle, 16 MB at N = 2^20, where W (4 MB) stays in the 50 MB L2
+// between passes, so the least traffic is 8 bytes a particle.  The TPU
+// kernels carried the running prefix through the sequential grid in SMEM;
+// CUDA blocks run in no order, so the prefix comes from a separate scan of
+// the per-block totals instead.  Five launches, no atomics, deterministic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,8 +97,8 @@ __global__ void k_qsum(const float* __restrict__ W, int64_t N,
 }
 
 // One block: exclusive scan of the block sums in place, then
-// minv = M / max(Q, 1) in f32.
-__global__ void k_scan(int64_t* __restrict__ bq, int64_t nb, int64_t M,
+// scal[1] = numer / max(Q, 1) in f32 (numer = M for B1, 1 for B3).
+__global__ void k_scan(int64_t* __restrict__ bq, int64_t nb, int64_t numer,
                        float* __restrict__ scal) {
   int64_t carry = 0;
   for (int64_t c = 0; c < nb; c += kScanThreads) {
@@ -101,43 +110,84 @@ __global__ void k_scan(int64_t* __restrict__ bq, int64_t nb, int64_t M,
     carry += tot;
   }
   if (threadIdx.x == 0) {
-    scal[1] = __fdiv_rn(__ll2float_rn(M), fmaxf(__ll2float_rn(carry), 1.0f));
+    scal[1] = __fdiv_rn(__ll2float_rn(numer), fmaxf(__ll2float_rn(carry), 1.0f));
   }
 }
 
-// Pass 2: re-quantise, scan inside the block from the block's prefix, and
-// apply the monotone transform.
-__global__ void k_z(const float* __restrict__ W, int64_t N, int64_t M,
-                    const float* __restrict__ u_ptr,
-                    const float* __restrict__ scal,
-                    const int64_t* __restrict__ bq, int32_t* __restrict__ z) {
-  const float scale = scal[0];
-  const float minv = scal[1];
-  const float u = *u_ptr;
-  const int64_t base =
-      (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  int64_t q[kItems];
+// Pass 2, shared by both epilogues: re-quantise, scan inside the block from
+// the block's prefix, and leave each owned element's inclusive prefix csq
+// (exact int64) in csq[].
+__device__ __forceinline__ void block_prefix(const float* __restrict__ W,
+                                             int64_t N, float scale,
+                                             const int64_t* __restrict__ bq,
+                                             int64_t base,
+                                             int64_t csq[kItems]) {
   int64_t s = 0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int64_t i = base + k;
-    q[k] = i < N ? quantise(W[i], scale) : 0;
-    s += q[k];
+    csq[k] = i < N ? quantise(W[i], scale) : 0;
+    s += csq[k];
   }
   int64_t tot;
   int64_t run = bq[blockIdx.x] + pt::block_exclusive_scan<int64_t, kThreads>(s, &tot);
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
+    run += csq[k];
+    csq[k] = run;
+  }
+}
+
+// B1 epilogue: the monotone transform to z.
+__global__ void k_z(const float* __restrict__ W, int64_t N, int64_t M,
+                    const float* __restrict__ u_ptr,
+                    const float* __restrict__ scal,
+                    const int64_t* __restrict__ bq, int32_t* __restrict__ z) {
+  const float minv = scal[1];
+  const float u = *u_ptr;
+  const int64_t base =
+      (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
+  int64_t csq[kItems];
+  block_prefix(W, N, scal[0], bq, base, csq);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
     const int64_t i = base + k;
-    run += q[k];
     if (i < N) {
-      const float f = __fsub_rn(__fmul_rn(__ll2float_rn(run), minv), u);
+      const float f = __fsub_rn(__fmul_rn(__ll2float_rn(csq[k]), minv), u);
       int64_t zi = __float2ll_rd(f) + 1;  // floor, then + 1
       zi = zi < 0 ? 0 : (zi > M ? M : zi);
       if (i == N - 1) zi = M;
       z[i] = (int32_t)zi;
     }
   }
+}
+
+// B3 epilogue: cs_i = f32(csq_i) * (1 / max(Q, 1)).
+__global__ void k_cs(const float* __restrict__ W, int64_t N,
+                     const float* __restrict__ scal,
+                     const int64_t* __restrict__ bq, float* __restrict__ cs) {
+  const float inv = scal[1];
+  const int64_t base =
+      (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
+  int64_t csq[kItems];
+  block_prefix(W, N, scal[0], bq, base, csq);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t i = base + k;
+    if (i < N) cs[i] = __fmul_rn(__ll2float_rn(csq[k]), inv);
+  }
+}
+
+// Passes 0 to 1b, shared: S, scale, block sums of q and their scan, and
+// scal[1] = numer / max(Q, 1).
+void prefix_passes(const float* w, int64_t N, int64_t numer,
+                          void* part, void* bq, void* scal, cudaStream_t s) {
+  const int64_t nb = (N + kTile - 1) / kTile;
+  k_wsum<<<(unsigned)nb, kThreads, 0, s>>>(w, N, (double*)part);
+  k_scale<<<1, kScanThreads, 0, s>>>((const double*)part, nb, (float*)scal);
+  k_qsum<<<(unsigned)nb, kThreads, 0, s>>>(w, N, (const float*)scal,
+                                           (int64_t*)bq);
+  k_scan<<<1, kScanThreads, 0, s>>>((int64_t*)bq, nb, numer, (float*)scal);
 }
 
 }  // namespace
@@ -155,14 +205,23 @@ int pt_systematic_z(const void* W, long long N, long long M, const void* u,
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t nb = (N + kTile - 1) / kTile;
   const float* w = (const float*)W;
-  k_wsum<<<(unsigned)nb, kThreads, 0, s>>>(w, N, (double*)part);
-  k_scale<<<1, kScanThreads, 0, s>>>((const double*)part, nb, (float*)scal);
-  k_qsum<<<(unsigned)nb, kThreads, 0, s>>>(w, N, (const float*)scal,
-                                           (int64_t*)bq);
-  k_scan<<<1, kScanThreads, 0, s>>>((int64_t*)bq, nb, M, (float*)scal);
+  prefix_passes(w, N, M, part, bq, scal, s);
   k_z<<<(unsigned)nb, kThreads, 0, s>>>(w, N, M, (const float*)u,
                                         (const float*)scal,
                                         (const int64_t*)bq, (int32_t*)z);
+  return (int)cudaGetLastError();
+}
+
+// W: (N,) f32, cs: (N,) f32 out; scratch as above.  Returns
+// cudaGetLastError().
+int pt_normalised_cumsum(const void* W, long long N, void* cs, void* part,
+                         void* bq, void* scal, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t nb = (N + kTile - 1) / kTile;
+  const float* w = (const float*)W;
+  prefix_passes(w, N, 1, part, bq, scal, s);
+  k_cs<<<(unsigned)nb, kThreads, 0, s>>>(w, N, (const float*)scal,
+                                         (const int64_t*)bq, (float*)cs);
   return (int)cudaGetLastError();
 }
 

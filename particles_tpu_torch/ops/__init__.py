@@ -3,18 +3,50 @@ plain PyTorch version beside it (counterpart of ``particles_tpu.ops``).
 
 A wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches its kernel or raises.  Each wrapper counts its launches
-in ``<wrapper>.launches``.
+in ``<wrapper>.launches``:
+
+=====  ============================  ==================================
+B1     ``systematic_z_fused``        systematic z-form
+B2     ``repeat_cols``               resampling move by z
+B3     ``normalised_cumsum_exact``   monotone normalised cumsum
+B4     ``repeat_cols_su``            resampling move by the inverse CDF
+B5     ``merge_rank_counts``         sorted-merge rank count
+B6     ``running_max``               inclusive running max
+=====  ============================  ==================================
 """
 
+from particles_tpu_torch.ops.cummax_kernel import (  # noqa: F401
+    running_max,
+    running_max_plain,
+)
+from particles_tpu_torch.ops.merge_rank_kernel import (  # noqa: F401
+    merge_rank_counts,
+    merge_rank_counts_plain,
+)
 from particles_tpu_torch.ops.repeat_kernel import (  # noqa: F401
     MAX_PAYLOADS,
+    ancestors_by_su,
     ancestors_by_z,
     repeat_by_z,
     repeat_cols,
     repeat_cols_plain,
+    repeat_cols_su,
+    repeat_cols_su_plain,
     serve_by_z,
 )
 from particles_tpu_torch.ops.z_kernel import (  # noqa: F401
+    normalised_cumsum_exact,
+    normalised_cumsum_plain,
     systematic_z_fused,
     systematic_z_plain,
 )
+
+# the launch counters of every kernel, by the wrapper that counts them
+KERNELS = {
+    "systematic_z": systematic_z_fused,
+    "repeat_by_z": repeat_cols,
+    "normalised_cumsum": normalised_cumsum_exact,
+    "repeat_by_su": repeat_cols_su,
+    "merge_rank_counts": merge_rank_counts,
+    "running_max": running_max,
+}

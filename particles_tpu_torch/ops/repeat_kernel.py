@@ -1,20 +1,31 @@
-"""The resampling move by the z-form: CUDA kernel and plain version.
+"""Resampling moves: by the z-form (B2) and by the inverse CDF of uniforms
+(B4), CUDA kernels and plain versions.
 
-Replaces the TPU kernel ``particles_tpu/ops/repeat_kernel.py::
+Replace the TPU kernel ``particles_tpu/ops/repeat_kernel.py::
 _make_visit_kernel`` in z-mode (public functions ``repeat_with_plan_cols``,
-``serve_by_z``, ``ancestors_by_z``, ``repeat_by_z``).  For ``z``, the
-inclusive cumsum of offspring counts ((N,) int32, nondecreasing,
-``z[-1] == M``), the move is::
+``serve_by_z``, ``ancestors_by_z``, ``repeat_by_z``) and in su-mode (plans
+from ``make_repeat_plan_su``).  For ``z``, the inclusive cumsum of
+offspring counts ((N,) int32, nondecreasing, ``z[-1] == M``), the z-move
+is::
 
     Y[j] = X[A_j],   A_j = #{k : z_k <= j},   j < M
 
-On this card the kernel (``csrc/repeat_kernel.cu``) is bound by bytes: it
-reads z and X and writes Y.  One thread per output binary-searches z for
-``A_j`` and copies row ``A_j`` of every payload as raw bits, so payloads
-of any dtype with 1-, 2-, 4- or 8-byte elements, (N,) or (N, d, ...),
-come back exact; up to ``MAX_PAYLOADS`` of them share one launch, and the
-ancestor vector ``A`` (int64) can ride the same launch.  There is no
-visit plan and no f32 round trip: those answered TPU limits.
+and for uniforms ``su`` ((M,) float32, sorted or not) and cumulative
+weights ``cs`` ((N,) float32, nondecreasing, ``cs[-1] >= max(su)``) the
+su-move is::
+
+    Y[j] = X[A_j],   A_j = #{i : cs_i < su_j}   (searchsorted side='left')
+
+with ``A`` clipped to N - 1.
+
+On this card both kernels (``csrc/repeat_kernel.cu``) are bound by bytes.
+One thread per output binary-searches z or cs for ``A_j`` and copies row
+``A_j`` of every payload as raw bits, so payloads of any dtype with 1-,
+2-, 4- or 8-byte elements, (N,) or (N, d, ...), come back exact; up to
+``MAX_PAYLOADS`` of them share one launch, and the ancestor vector ``A``
+(int64) can ride the same launch.  There is no visit plan, no f32 round
+trip, no sort around unsorted queries and no ``M % N`` gate: those
+answered TPU limits.
 """
 
 from __future__ import annotations
@@ -26,7 +37,8 @@ import torch
 from particles_tpu_torch import _build
 
 __all__ = ["MAX_PAYLOADS", "repeat_cols", "repeat_cols_plain",
-           "repeat_by_z", "serve_by_z", "ancestors_by_z"]
+           "repeat_by_z", "serve_by_z", "ancestors_by_z", "repeat_cols_su",
+           "repeat_cols_su_plain", "ancestors_by_su"]
 
 MAX_PAYLOADS = 8   # payloads per launch; kMaxPayloads in the CUDA source
 
@@ -45,6 +57,12 @@ def _kernels():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]
         lib.pt_repeat_by_z.restype = ctypes.c_int
+        lib.pt_repeat_by_su.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.pt_repeat_by_su.restype = ctypes.c_int
         if lib.pt_repeat_max_payloads() != MAX_PAYLOADS:
             raise RuntimeError("repeat_kernel.cu and repeat_kernel.py "
                                "disagree on the payloads per launch")
@@ -52,27 +70,87 @@ def _kernels():
     return _lib
 
 
+def _check_M(M, what):
+    if not (isinstance(M, int) and 1 <= M < 2**31):
+        raise ValueError(f"{what}: M must be an int in [1, 2^31), got {M!r}")
+
+
+def _check_payloads(cols, N, device, what):
+    for x in cols:
+        if not isinstance(x, torch.Tensor) or x.ndim < 1 or x.shape[0] != N:
+            raise ValueError(f"{what}: every payload must have leading "
+                             f"dimension N={N}")
+        if x.device != device:
+            raise ValueError(f"{what}: payload on {x.device}, the move on "
+                             f"{device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: payloads must be contiguous")
+        if x.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"{what}: no kernel for {x.dtype} "
+                            f"({x.element_size()}-byte elements)")
+
+
 def _check(z, M, cols):
     if not isinstance(z, torch.Tensor) or z.dtype != torch.int32:
         raise TypeError("repeat_by_z: z must be an int32 tensor")
     if z.ndim != 1 or z.shape[0] < 1 or not z.is_contiguous():
         raise ValueError("repeat_by_z: z must be contiguous (N,) with N >= 1")
-    if not (isinstance(M, int) and 1 <= M < 2**31):
-        raise ValueError(f"repeat_by_z: M must be an int in [1, 2^31), "
-                         f"got {M!r}")
-    N = z.shape[0]
-    for x in cols:
-        if not isinstance(x, torch.Tensor) or x.ndim < 1 or x.shape[0] != N:
-            raise ValueError(f"repeat_by_z: every payload must have leading "
-                             f"dimension N={N}")
-        if x.device != z.device:
-            raise ValueError(f"repeat_by_z: payload on {x.device}, z on "
-                             f"{z.device}")
-        if not x.is_contiguous():
-            raise ValueError("repeat_by_z: payloads must be contiguous")
-        if x.element_size() not in (1, 2, 4, 8):
-            raise TypeError(f"repeat_by_z: no kernel for {x.dtype} "
-                            f"({x.element_size()}-byte elements)")
+    _check_M(M, "repeat_by_z")
+    _check_payloads(cols, z.shape[0], z.device, "repeat_by_z")
+
+
+def _check_su(su, cs, M, cols):
+    for name, v in (("su", su), ("cs", cs)):
+        if not isinstance(v, torch.Tensor) or v.dtype != torch.float32:
+            raise TypeError(f"repeat_by_su: {name} must be a float32 tensor")
+        if v.ndim != 1 or v.shape[0] < 1 or not v.is_contiguous():
+            raise ValueError(f"repeat_by_su: {name} must be contiguous (n,) "
+                             f"with n >= 1")
+    if su.device != cs.device:
+        raise ValueError(f"repeat_by_su: su on {su.device}, cs on "
+                         f"{cs.device}")
+    _check_M(M, "repeat_by_su")
+    if M != su.shape[0]:
+        raise ValueError(f"repeat_by_su: M={M} but su has {su.shape[0]} "
+                         f"entries")
+    _check_payloads(cols, cs.shape[0], cs.device, "repeat_by_su")
+
+
+def _launch_chunks(launch, N, M, cols, want_anc, device):
+    """Serve ``cols`` in launches of up to ``MAX_PAYLOADS`` payloads, ``A``
+    riding the first one (with no payload, one ancestors-only launch).
+    ``launch(P, xs, ys, widths, esizes, anc_ptr, stream)`` starts one
+    kernel and returns its CUDA error code.  Returns ``(served, A,
+    launches)``."""
+    served, A, launches = [], None, 0
+    for s in range(0, max(len(cols), 1), MAX_PAYLOADS):
+        chunk = cols[s:s + MAX_PAYLOADS]
+        anc_here = want_anc and s == 0
+        if not chunk and not anc_here:
+            break
+        ys = [torch.empty((M,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device) for x in chunk]
+        a = (torch.empty(M, dtype=torch.int64, device=device)
+             if anc_here else None)
+        P = len(chunk)
+        xs_arr = (ctypes.c_void_p * max(P, 1))(*[x.data_ptr() for x in chunk])
+        ys_arr = (ctypes.c_void_p * max(P, 1))(*[y.data_ptr() for y in ys])
+        w_arr = (ctypes.c_longlong * max(P, 1))(
+            *[x.numel() // N for x in chunk])
+        e_arr = (ctypes.c_int * max(P, 1))(*[x.element_size() for x in chunk])
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = launch(P, ctypes.addressof(xs_arr), ctypes.addressof(ys_arr),
+                         ctypes.addressof(w_arr), ctypes.addressof(e_arr),
+                         a.data_ptr() if a is not None else None, stream)
+        if err != 0:
+            raise RuntimeError(f"resampling move kernel launch failed: CUDA "
+                               f"error {err}")
+        launches += 1
+        served.extend(ys)
+        if anc_here:
+            A = a
+    return served, A, launches
 
 
 def repeat_cols_plain(z, M, cols, want_anc=False):
@@ -100,36 +178,13 @@ def repeat_cols(z, M, cols, want_anc=False):
         raise ValueError(f"repeat_by_z: no kernel for device {z.device}")
     lib = _kernels()
     N = z.shape[0]
-    served, A = [], None
-    for s in range(0, max(len(cols), 1), MAX_PAYLOADS):
-        chunk = cols[s:s + MAX_PAYLOADS]
-        anc_here = want_anc and s == 0
-        if not chunk and not anc_here:
-            break
-        ys = [torch.empty((M,) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=x.device) for x in chunk]
-        a = (torch.empty(M, dtype=torch.int64, device=z.device)
-             if anc_here else None)
-        P = len(chunk)
-        xs_arr = (ctypes.c_void_p * max(P, 1))(*[x.data_ptr() for x in chunk])
-        ys_arr = (ctypes.c_void_p * max(P, 1))(*[y.data_ptr() for y in ys])
-        w_arr = (ctypes.c_longlong * max(P, 1))(
-            *[x.numel() // N for x in chunk])
-        e_arr = (ctypes.c_int * max(P, 1))(*[x.element_size() for x in chunk])
-        with torch.cuda.device(z.device):
-            stream = torch.cuda.current_stream(z.device).cuda_stream
-            err = lib.pt_repeat_by_z(
-                z.data_ptr(), N, M, P, ctypes.addressof(xs_arr),
-                ctypes.addressof(ys_arr), ctypes.addressof(w_arr),
-                ctypes.addressof(e_arr),
-                a.data_ptr() if a is not None else None, stream)
-        if err != 0:
-            raise RuntimeError(f"repeat_by_z kernel launch failed: CUDA "
-                               f"error {err}")
-        repeat_cols.launches += 1
-        served.extend(ys)
-        if anc_here:
-            A = a
+
+    def launch(P, xs, ys, widths, esizes, anc, stream):
+        return lib.pt_repeat_by_z(z.data_ptr(), N, M, P, xs, ys, widths,
+                                  esizes, anc, stream)
+
+    served, A, n = _launch_chunks(launch, N, M, cols, want_anc, z.device)
+    repeat_cols.launches += n
     return served, A
 
 
@@ -150,3 +205,46 @@ def serve_by_z(z, M):
 def ancestors_by_z(z, M):
     """Sorted ancestor vector ``A[j] = #{k: z_k <= j}`` (int64)."""
     return repeat_cols(z, M, [], want_anc=True)[1]
+
+
+def repeat_cols_su_plain(su, cs, M, cols, want_anc=False):
+    """Plain PyTorch version of :func:`repeat_cols_su` (any device)."""
+    A = torch.searchsorted(cs, su).clamp_(max=cs.shape[0] - 1)
+    return [x.index_select(0, A) for x in cols], (A if want_anc else None)
+
+
+def repeat_cols_su(su, cs, M, cols, want_anc=False):
+    """Serve every payload in ``cols`` by the inverse CDF ``cs`` at the
+    uniforms ``su`` ((M,), in any order) and optionally return the ancestor
+    vector: ``([Y_p], A or None)``, ``A`` int64.
+
+    Counterpart of ``repeat_with_plan_cols`` on a ``make_repeat_plan_su``
+    plan, with the same launch rules as :func:`repeat_cols`.  A CPU ``cs``
+    goes to :func:`repeat_cols_su_plain`; a CUDA ``cs`` to the kernel,
+    which raises if it cannot build or launch.
+    """
+    cols = list(cols)
+    _check_su(su, cs, M, cols)
+    if cs.device.type == "cpu":
+        return repeat_cols_su_plain(su, cs, M, cols, want_anc)
+    if cs.device.type != "cuda":
+        raise ValueError(f"repeat_by_su: no kernel for device {cs.device}")
+    lib = _kernels()
+    N = cs.shape[0]
+
+    def launch(P, xs, ys, widths, esizes, anc, stream):
+        return lib.pt_repeat_by_su(su.data_ptr(), M, cs.data_ptr(), N, P, xs,
+                                   ys, widths, esizes, anc, stream)
+
+    served, A, n = _launch_chunks(launch, N, M, cols, want_anc, cs.device)
+    repeat_cols_su.launches += n
+    return served, A
+
+
+repeat_cols_su.launches = 0   # kernel launches, for tracing the path
+
+
+def ancestors_by_su(su, cs):
+    """Ancestor vector ``A[j] = #{i: cs_i < su_j}`` (int64), clipped to
+    N - 1."""
+    return repeat_cols_su(su, cs, su.shape[0], [], want_anc=True)[1]

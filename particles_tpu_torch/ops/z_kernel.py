@@ -1,22 +1,32 @@
-"""Systematic z-form of normalised weights: CUDA kernel and plain version.
+"""Fixed-point cumulative weights: the systematic z-form (B1) and the
+monotone normalised cumsum (B3), CUDA kernels and plain versions.
 
-Replaces the TPU kernel ``particles_tpu/ops/z_kernel.py::_z_kernel``
-(public function ``systematic_z_fused``).  The function, for weights
-``W >= 0`` and a uniform ``u``::
+Replace the TPU kernels ``particles_tpu/ops/z_kernel.py::_z_kernel``
+(public function ``systematic_z_fused``) and ``::_cs_kernel`` (public
+function ``normalised_cumsum_exact``).  Both quantise the weights
+``W >= 0`` to a fixed-point grid and take an exact integer cumsum::
 
     S = sum(W);  scale = 2^30 / max(S, 1e-37)          (f32)
     q = round(W * scale)  (half to even, int64);  Q = sum(q)
-    z = clip(floor(f32(cumsum(q)) * (M / max(Q, 1)) - u) + 1, 0, M)
-    z[-1] = M
+    csq = cumsum(q)                                    (exact)
 
-``z`` is int32, nondecreasing by construction (the integer cumsum is
-exact and every later stage is monotone), and within 1 of the float64
-answer ``floor(M * cumsum(W) / sum(W) - u) + 1``.
+and then, for B1 with a uniform ``u``::
 
-On this card the kernel (``csrc/z_kernel.cu``) is bound by bytes: it
-reads W three times and writes z, and at N = 2^20 the W re-reads come
-from L2.  Its design, and how it differs from the TPU tiling, is in the
-source's header.
+    z = clip(floor(f32(csq) * (M / max(Q, 1)) - u) + 1, 0, M);  z[-1] = M
+
+``z`` is int32, within 1 of the float64 answer ``floor(M * cumsum(W) /
+sum(W) - u) + 1``; and for B3::
+
+    cs = f32(csq) * (1 / max(Q, 1))
+
+within ``N * 2^-31 + 1e-6`` of the float64 CDF, with ``|cs[-1] - 1| <
+1e-6``.  Every stage after the integer cumsum is monotone, so z and cs
+are nondecreasing by construction, for any N >= 1.
+
+On this card the kernels (``csrc/z_kernel.cu``) are bound by bytes: each
+reads W three times and writes its output, and at N = 2^20 the W re-reads
+come from L2.  The design, and how it differs from the TPU tiling, is in
+the source's header.
 """
 
 from __future__ import annotations
@@ -27,7 +37,8 @@ import torch
 
 from particles_tpu_torch import _build
 
-__all__ = ["systematic_z_fused", "systematic_z_plain"]
+__all__ = ["systematic_z_fused", "systematic_z_plain",
+           "normalised_cumsum_exact", "normalised_cumsum_plain"]
 
 _SCALE = float(1 << 30)   # fixed-point grid
 
@@ -45,20 +56,29 @@ def _kernels():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         lib.pt_systematic_z.restype = ctypes.c_int
+        lib.pt_normalised_cumsum.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.pt_normalised_cumsum.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(W, u, M):
+def _check_weights(W, what):
     if not isinstance(W, torch.Tensor):
-        raise TypeError("systematic_z: W must be a torch.Tensor")
+        raise TypeError(f"{what}: W must be a torch.Tensor")
     if W.dtype != torch.float32:
-        raise TypeError(f"systematic_z: W must be float32, got {W.dtype}")
+        raise TypeError(f"{what}: W must be float32, got {W.dtype}")
     if W.ndim != 1 or W.shape[0] < 1:
-        raise ValueError(f"systematic_z: W must be (N,) with N >= 1, "
+        raise ValueError(f"{what}: W must be (N,) with N >= 1, "
                          f"got shape {tuple(W.shape)}")
     if not W.is_contiguous():
-        raise ValueError("systematic_z: W must be contiguous")
+        raise ValueError(f"{what}: W must be contiguous")
+
+
+def _check(W, u, M):
+    _check_weights(W, "systematic_z")
     if not (isinstance(M, int) and 1 <= M < 2**31):
         raise ValueError(f"systematic_z: M must be an int in [1, 2^31), "
                          f"got {M!r}")
@@ -68,20 +88,38 @@ def _check(W, u, M):
     return u.reshape(())
 
 
+def _fixed_point_cumsum(W):
+    """csq = cumsum(round(W * 2^30 / S)), exact in int64, and f32(Q)."""
+    S = W.sum(dtype=torch.float64).to(torch.float32)
+    # constants by new_full: a fill on the device, not a host copy (a sync)
+    scale = S.new_full((), _SCALE) / S.clamp_min(1e-37)
+    csq = torch.cumsum(torch.round(W * scale).to(torch.int64), 0)
+    return csq, csq[-1].to(torch.float32).clamp_min(1.0)
+
+
 def systematic_z_plain(W, u, M):
     """The same fixed-point algorithm in plain PyTorch (any device)."""
     u = torch.as_tensor(u, dtype=torch.float32, device=W.device)
-    S = W.sum(dtype=torch.float64).to(torch.float32)
-    scale = torch.tensor(_SCALE, dtype=torch.float32,
-                         device=W.device) / S.clamp_min(1e-37)
-    q = torch.round(W * scale).to(torch.int64)
-    csq = torch.cumsum(q, 0)
-    minv = torch.tensor(float(M), dtype=torch.float32,
-                        device=W.device) / csq[-1].to(torch.float32).clamp_min(1.0)
+    csq, Q = _fixed_point_cumsum(W)
+    minv = Q.new_full((), float(M)) / Q
     z = torch.floor(csq.to(torch.float32) * minv - u).to(torch.int64) + 1
     z = z.clamp_(0, M).to(torch.int32)
-    z[-1] = M
+    z[-1:].fill_(M)
     return z
+
+
+def normalised_cumsum_plain(W):
+    """B3's fixed-point algorithm in plain PyTorch (any device)."""
+    csq, Q = _fixed_point_cumsum(W)
+    inv = Q.new_ones(()) / Q
+    return csq.to(torch.float32) * inv
+
+
+def _scratch(N, device):
+    nb = -(-N // _kernels().pt_z_tile())
+    return (torch.empty(nb, dtype=torch.float64, device=device),
+            torch.empty(nb, dtype=torch.int64, device=device),
+            torch.empty(2, dtype=torch.float32, device=device))
 
 
 def systematic_z_fused(W, u, M):
@@ -100,11 +138,8 @@ def systematic_z_fused(W, u, M):
         raise ValueError(f"systematic_z: no kernel for device {W.device}")
     lib = _kernels()
     N = W.shape[0]
-    nb = -(-N // lib.pt_z_tile())
     z = torch.empty(N, dtype=torch.int32, device=W.device)
-    part = torch.empty(nb, dtype=torch.float64, device=W.device)
-    bq = torch.empty(nb, dtype=torch.int64, device=W.device)
-    scal = torch.empty(2, dtype=torch.float32, device=W.device)
+    part, bq, scal = _scratch(N, W.device)
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = lib.pt_systematic_z(W.data_ptr(), N, M, u.data_ptr(),
@@ -118,3 +153,36 @@ def systematic_z_fused(W, u, M):
 
 
 systematic_z_fused.launches = 0   # kernel launches, for tracing the path
+
+
+def normalised_cumsum_exact(W):
+    """Monotone normalised cumulative weights of ``W`` ((N,) float32,
+    >= 0): (N,) float32, nondecreasing, ``cs[-1]`` within 1e-6 of 1 (callers
+    that need an exact top pin it themselves).
+
+    A CPU tensor goes to :func:`normalised_cumsum_plain`; a CUDA tensor to
+    the kernel, which raises if it cannot build or launch.
+    """
+    _check_weights(W, "normalised_cumsum")
+    if W.device.type == "cpu":
+        return normalised_cumsum_plain(W)
+    if W.device.type != "cuda":
+        raise ValueError(f"normalised_cumsum: no kernel for device "
+                         f"{W.device}")
+    lib = _kernels()
+    N = W.shape[0]
+    cs = torch.empty(N, dtype=torch.float32, device=W.device)
+    part, bq, scal = _scratch(N, W.device)
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        err = lib.pt_normalised_cumsum(W.data_ptr(), N, cs.data_ptr(),
+                                       part.data_ptr(), bq.data_ptr(),
+                                       scal.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"normalised_cumsum kernel launch failed: CUDA "
+                           f"error {err}")
+    normalised_cumsum_exact.launches += 1
+    return cs
+
+
+normalised_cumsum_exact.launches = 0   # kernel launches, for tracing the path

@@ -1,21 +1,41 @@
-"""Log-space weight numerics and resampling (PyTorch port, first slice).
+"""Log-space weight numerics and resampling schemes (PyTorch port).
 
 Counterpart of ``particles_tpu/resampling.py``: the numerics
 (``exp_and_normalise``, ``essl``, ``log_sum_exp``, ``log_sum_exp_ab``,
 ``log_mean_exp``, ``wmean_and_var``), the :class:`Weights` container, and
-the scheme registries selected by name.  Of the schemes only
-``systematic`` is ported; the others raise ``NotImplementedError``
-(ROADMAP A.4).
+every resampling scheme of the JAX package — ``multinomial``,
+``residual``, ``stratified``, ``systematic``, ``ssp``, ``killing``,
+``idiotic`` — in three registries selected by name: ancestors
+(``rs_funcs``), offspring counts (``rs_counts_funcs``) and z-forms
+(``rs_z_funcs``), plus ``multinomial_iid`` and ``MultinomialQueue``.
 
 Randomness is an explicit ``torch.Generator`` where the JAX package takes
-a key: ``resampling(scheme, gen, W, M)``.
+a key: ``resampling(scheme, gen, W, M)``.  Ancestor indices are int64
+(the JAX package's are int32).
+
+The kernels of :mod:`particles_tpu_torch.ops` carry the schemes: B1 the
+systematic z-form, B3 the monotone CDF of every other inverse-CDF scheme,
+B5 the merge of sorted uniforms with it, B4 the inverse-CDF serve of
+unsorted uniforms (``multinomial_iid``), B2 the move by z.  No scheme
+reads a device value on the host, except the sequential SSP below
+``_SSP_BLOCKED_MIN``, a host loop as in the JAX package.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from particles_tpu_torch.ops import ancestors_by_z, systematic_z_fused
+from particles_tpu_torch.ops import (
+    ancestors_by_su,
+    ancestors_by_z,
+    merge_rank_counts,
+    normalised_cumsum_exact,
+    repeat_cols_su,
+    running_max,
+    systematic_z_fused,
+)
 
 __all__ = [
     "Weights",
@@ -26,16 +46,27 @@ __all__ = [
     "log_mean_exp",
     "wmean_and_var",
     "resampling",
+    "resampling_scheme",
+    "resampling_counts",
     "resampling_z",
     "rs_funcs",
+    "rs_counts_funcs",
     "rs_z_funcs",
+    "inverse_cdf",
+    "uniform_spacings",
+    "counts_to_ancestors",
+    "multinomial",
+    "multinomial_iid",
+    "multinomial_iid_values",
+    "multinomial_once",
+    "stratified",
     "systematic",
-    "systematic_z",
+    "residual",
+    "ssp",
+    "killing",
+    "idiotic",
+    "MultinomialQueue",
 ]
-
-# schemes of the JAX package that this slice does not port yet
-_UNPORTED_SCHEMES = ("multinomial", "residual", "stratified", "ssp",
-                     "killing", "idiotic")
 
 
 # ---------------------------------------------------------------------------
@@ -137,16 +168,60 @@ class Weights:
 
 
 # ---------------------------------------------------------------------------
-# scheme registries
+# numerics of the inverse CDF
 # ---------------------------------------------------------------------------
 
-def _unported(scheme):
-    if scheme in _UNPORTED_SCHEMES:
-        return NotImplementedError(
-            f"resampling scheme {scheme!r} is not ported to particles_tpu_torch "
-            "yet (ROADMAP A.4); 'systematic' is")
-    return ValueError(f"{scheme} is not a valid resampling scheme")
+def inverse_cdf(su, W):
+    """Ancestors by the inverse CDF of ``W`` at the uniforms ``su``: the
+    smallest i with ``cumsum(W)[i] >= su_j`` (int64), clipped to N - 1."""
+    cs = torch.cumsum(W, 0)
+    return torch.searchsorted(cs, su).clamp_(max=W.shape[0] - 1)
 
+
+def uniform_spacings(gen, N):
+    """N sorted uniforms in O(N): normalised cumulative sums of N + 1
+    exponentials, drawn on the generator's device."""
+    E = torch.empty(N + 1, device=gen.device).exponential_(generator=gen)
+    z = torch.cumsum(E, 0)
+    return z[:-1] / z[-1]
+
+
+def multinomial_once(gen, W):
+    """A single draw from the categorical distribution W (a 0-d int64
+    tensor on W's device)."""
+    u = torch.rand(1, generator=gen, device=W.device)
+    cs = torch.cumsum(W, 0)
+    return torch.searchsorted(cs, u).clamp_(max=W.shape[0] - 1)[0]
+
+
+def _normalised_cumsum_mono(W):
+    """Normalised cumulative weights plus a flag saying the result is
+    monotone by construction.  In the port it always is: B3 takes every N
+    (the JAX package falls back to a float cumsum off the TPU, and then
+    its callers apply :func:`_monotone_z`)."""
+    return normalised_cumsum_exact(W), True
+
+
+def _merge_rank_counts(su, cs, M):
+    """z_i = #{j: su_j <= cs_i} for sorted su, clipped to [0, M] (B5)."""
+    return merge_rank_counts(su, cs, M)
+
+
+def _monotone_z(z):
+    """Enforce the nondecreasing z contract by a running max (B6)."""
+    return running_max(z)
+
+
+def _diff(z):
+    return torch.diff(z, prepend=z.new_zeros(1))
+
+
+# ---------------------------------------------------------------------------
+# z-forms and offspring counts (sorted-ancestor schemes)
+# ---------------------------------------------------------------------------
+#
+# A sorted-ancestor scheme is its z-form: z = cumsum(counts), (N,) int32,
+# nondecreasing, z[-1] == M, and the move is Y[j] = X[#{k: z_k <= j}] (B2).
 
 def systematic_z(gen, W, M=None):
     """Systematic z-form: ``z_i = #{j: (j + u)/M <= cs_i}``, computed by
@@ -157,26 +232,380 @@ def systematic_z(gen, W, M=None):
     return systematic_z_fused(W, u, M)
 
 
-def systematic(gen, W, M=None):
-    """Systematic resampling: (M,) sorted ancestor indices (int64)."""
+def _stratified_z_of(u, W, M):
+    """Stratified z-form for the uniforms ``u`` ((M,)): z_i = k_i +
+    1[u_{k_i} <= frac_i], k_i = floor(M cs_i)."""
+    cs, cs_mono = _normalised_cumsum_mono(W)
+    g = cs * M
+    k = torch.floor(g).to(torch.int32)
+    frac = g - k
+    uk = u.index_select(0, k.clamp(0, M - 1))
+    z = torch.where(k >= M, M, k + (uk <= frac).to(torch.int32))
+    z = z.clamp_(0, M)
+    z[-1:].fill_(M)   # a kernel argument: no host-to-device copy, no sync
+    # monotone cs => monotone z: either k is equal (frac nondecreasing, so
+    # the shared-u indicator is nondecreasing) or k_{i+1} > k_i
+    return z if cs_mono else _monotone_z(z)
+
+
+def stratified_z(gen, W, M=None):
+    """Stratified z-form: ``z_i = #{j: (j + u_j)/M <= cs_i}`` (B3)."""
     M = W.shape[0] if M is None else M
-    return ancestors_by_z(systematic_z(gen, W, M), M)
+    return _stratified_z_of(torch.rand(M, generator=gen, device=W.device),
+                            W, M)
 
 
-rs_funcs = {"systematic": systematic}
-rs_z_funcs = {"systematic": systematic_z}
+def _multinomial_z_of(su, W, M):
+    """Multinomial z-form for the sorted uniforms ``su`` ((M,))."""
+    cs, cs_mono = _normalised_cumsum_mono(W)
+    z = _merge_rank_counts(su, cs, M)
+    z[-1:].fill_(M)
+    # z_i = #{j: su_j <= cs_i} is monotone in i whenever cs is
+    return z if cs_mono else _monotone_z(z)
 
 
-def resampling(scheme, gen, W, M=None):
-    """Ancestor indices of scheme ``scheme`` (by name)."""
-    if scheme not in rs_funcs:
-        raise _unported(scheme)
-    return rs_funcs[scheme](gen, W, M)
+def multinomial_z(gen, W, M=None):
+    """Multinomial z-form ~ Multinomial(M, W): sorted uniforms (spacings)
+    merged against the monotone CDF (B3, B5)."""
+    M = W.shape[0] if M is None else M
+    return _multinomial_z_of(uniform_spacings(gen, M), W, M)
+
+
+def systematic_counts(gen, W, M=None):
+    """Systematic offspring counts = diff of the z-form."""
+    return _diff(systematic_z(gen, W, M))
+
+
+def stratified_counts(gen, W, M=None):
+    """Stratified offspring counts = diff of the z-form."""
+    return _diff(stratified_z(gen, W, M))
+
+
+def multinomial_counts(gen, W, M=None):
+    """Multinomial offspring counts = diff of the z-form."""
+    return _diff(multinomial_z(gen, W, M))
+
+
+def residual_counts(gen, W, M=None):
+    """Residual offspring counts: floor(M W) deterministic copies plus
+    multinomial draws on the residual weights.
+
+    The number of residual draws ``sres = M - sum(floor(M W))`` stays on
+    the device: the first k of ``cumsum(E) / cumsum(E)[k]`` are k sorted
+    uniforms for any k, so M + 1 exponentials give them with fixed shapes,
+    and the draws past ``sres`` are masked above every cs (B3, B5).
+    """
+    M = W.shape[0] if M is None else M
+    MW = W * M
+    intpart = torch.floor(MW).to(torch.int32)
+    res = MW - intpart
+    sres = M - intpart.sum()
+    z_exp = torch.cumsum(
+        torch.empty(M + 1, device=W.device).exponential_(generator=gen), 0)
+    denom = z_exp.index_select(0, sres.clamp(0, M).reshape(1))
+    su = z_exp[:-1] / denom
+    su = torch.where(torch.arange(M, device=W.device) < sres, su, 2.0)
+    cs, cs_mono = _normalised_cumsum_mono(res / res.sum().clamp_min(1e-30))
+    zr = torch.minimum(_merge_rank_counts(su, cs, M), sres).to(torch.int32)
+    zr[-1] = sres.clamp(0, M)
+    if not cs_mono:
+        zr = _monotone_z(zr)
+    return intpart + _diff(zr)
+
+
+# N from which ssp_counts pairs by the tree (_ssp_counts_blocked), and its
+# block width, as in the JAX package
+_SSP_BLOCKED_MIN = 8192
+_SSP_K = 32
+
+
+def _ssp_counts_sequential(W, M, u):
+    """The sequential SSP pairing over Python floats (``W`` and ``u`` lists
+    of N and N - 1 numbers), as the JAX package's ``native.ssp_counts``:
+    float64, with its round-off fix-up so that the counts sum to M."""
+    N = len(W)
+    total = sum(W)
+    counts, xi = [], []
+    for w in W:
+        mw = M * w / total
+        fl = math.floor(mw)
+        counts.append(fl)
+        xi.append(mw - fl)
+    i, j = 0, 1
+    for k in range(N - 1):
+        delta_i = min(xi[j], 1.0 - xi[i])
+        delta_j = min(xi[i], 1.0 - xi[j])
+        sum_delta = delta_i + delta_j
+        pj = delta_i / sum_delta if sum_delta > 0.0 else 0.0
+        if u[k] < pj:
+            i, j = j, i
+            delta_i = delta_j
+        if xi[j] < 1.0 - xi[i]:
+            xi[i] += delta_i
+            j = k + 2
+        else:
+            xi[j] -= delta_i
+            counts[i] += 1
+            i = k + 2
+    last = i if j == N else j
+    total_counts = sum(counts)
+    if total_counts == M - 1 and xi[last] > 0.99:
+        counts[last] += 1
+        total_counts += 1
+    counts[last] += M - total_counts
+    return counts
+
+
+def _ssp_counts_blocked(gen, W, M, K=_SSP_K):
+    """SSP offspring counts by the tree pairing of the JAX package's
+    ``_ssp_counts_blocked``: the fractional parts are paired within K-wide
+    STRIDED blocks (block b is {b, B + b, 2B + b, ...}), B = N/K chains
+    advanced in lockstep for K - 1 steps, and each block's surviving
+    fraction is promoted to the next level: ceil(log_K N) levels.  Any
+    adapted pairing keeps SSP's unbiasedness, its floor/ceil support and
+    the exact sum; the joint law differs from the sequential pairing's.
+    Everything stays on the device."""
+    N = W.shape[0]
+    dev = W.device
+    MW = W * M
+    floor = torch.floor(MW)
+    phi = MW - floor
+    nr = floor.to(torch.int64)
+    idx = torch.arange(N, device=dev)
+    n, first_level = N, True
+    while n > 1:
+        npad = -(-n // K) * K
+        if npad > n:
+            # zero fractional parts retire at 0 without a count
+            phi = torch.cat([phi, phi.new_zeros(npad - n)])
+            idx = torch.cat([idx, idx.new_zeros(npad - n)])
+        B = npad // K
+        x = phi.clone()         # flat (K, B): entry r * B + c, block c
+        nrl = torch.zeros(npad, dtype=torch.int64, device=dev)
+        u = torch.rand((K - 1, B), generator=gen, device=dev)
+        cols = torch.arange(B, device=dev)
+        i, j = cols, cols + B   # flat indices of each block's pair
+        for k in range(K - 1):
+            a, b = x[i], x[j]
+            delta_i = torch.minimum(b, 1.0 - a)
+            delta_j = torch.minimum(a, 1.0 - b)
+            sum_delta = delta_i + delta_j
+            pj = torch.where(sum_delta > 0.0, delta_i / sum_delta, 0.0)
+            swap = u[k] < pj
+            i, j = torch.where(swap, j, i), torch.where(swap, i, j)
+            a, b = torch.where(swap, b, a), torch.where(swap, a, b)
+            one_minus_a = 1.0 - a
+            delta = torch.minimum(b, one_minus_a)
+            grow = b < one_minus_a
+            # grow: i takes delta from j, and j retires; else i retires
+            # with one more offspring and j keeps the rest
+            x.index_add_(0, torch.where(grow, i, j),
+                         torch.where(grow, delta, -delta))
+            nrl.index_add_(0, i, (~grow).to(torch.int64))
+            nxt = cols + (k + 2) * B
+            i, j = torch.where(grow, i, nxt), torch.where(grow, nxt, j)
+        fs = torch.where(j >= K * B, i, j)            # block survivors
+        if first_level:
+            nr = nr + nrl[:N]                # flat order == input order
+            first_level = False
+        else:
+            nr.index_add_(0, idx, nrl)
+        phi, idx = x[fs], idx[fs]
+        n = B
+    # land the round-off on the final survivor so that the counts sum to M
+    nr.index_add_(0, idx[:1], (M - nr.sum()).reshape(1))
+    return nr.to(torch.int32)
+
+
+def ssp_counts(gen, W, M=None):
+    """SSP offspring counts: floor(M W_n) or floor(M W_n) + 1 offspring
+    each, summing to M, negatively associated (Gerber, Chopin & Whiteley
+    2019).
+
+    At N >= ``_SSP_BLOCKED_MIN`` the tree pairing on the device
+    (:func:`_ssp_counts_blocked`); below it the sequential pairing as a
+    host loop over float64 values, which reads W on the host (the one
+    scheme step that syncs).
+    """
+    M = W.shape[0] if M is None else M
+    N = W.shape[0]
+    if N >= _SSP_BLOCKED_MIN:
+        return _ssp_counts_blocked(gen, W, M)
+    u = torch.rand(N - 1, generator=gen, device=W.device, dtype=torch.float64)
+    counts = _ssp_counts_sequential(W.double().tolist(), M, u.tolist())
+    return torch.tensor(counts, dtype=torch.int32, device=W.device)
+
+
+rs_counts_funcs = {
+    "systematic": systematic_counts,
+    "stratified": stratified_counts,
+    "multinomial": multinomial_counts,
+    "residual": residual_counts,
+    "ssp": ssp_counts,
+}
+rs_z_funcs = {
+    "systematic": systematic_z,
+    "stratified": stratified_z,
+    "multinomial": multinomial_z,
+}
+
+
+def resampling_counts(scheme, gen, W, M=None):
+    """Offspring counts of a sorted-ancestor scheme: (N,) int32 summing to
+    M."""
+    if scheme not in rs_counts_funcs:
+        raise ValueError(f"{scheme} has no counts-based (sorted) form")
+    return rs_counts_funcs[scheme](gen, W, M)
 
 
 def resampling_z(scheme, gen, W, M=None):
     """z-form of a sorted-ancestor scheme: (N,) int32 nondecreasing with
-    ``z[-1] == M``; the move is ``Y[j] = X[#{k: z_k <= j}]``."""
-    if scheme not in rs_z_funcs:
-        raise _unported(scheme)
-    return rs_z_funcs[scheme](gen, W, M)
+    ``z[-1] == M``; the move is ``Y[j] = X[#{k: z_k <= j}]``.  Schemes
+    without an analytic z-form take the cumsum of their counts."""
+    if scheme in rs_z_funcs:
+        return rs_z_funcs[scheme](gen, W, M)
+    counts = resampling_counts(scheme, gen, W, M)
+    return torch.cumsum(counts, 0, dtype=torch.int32)
+
+
+def counts_to_ancestors(counts, M):
+    """Sorted ancestors ``A[m] = #{n: cumsum(counts)[n] <= m}`` (int64), by
+    B2's ancestors-only form."""
+    return ancestors_by_z(torch.cumsum(counts, 0, dtype=torch.int32), M)
+
+
+# ---------------------------------------------------------------------------
+# ancestor schemes (the registry selected by name)
+# ---------------------------------------------------------------------------
+
+rs_funcs = {}
+
+
+def resampling_scheme(func):
+    """Register a resampling scheme ``func(gen, W, M)`` by name; ``M``
+    defaults to N."""
+
+    def wrapped(gen, W, M=None):
+        return func(gen, W, W.shape[0] if M is None else M)
+
+    wrapped.__name__ = func.__name__
+    wrapped.__qualname__ = func.__qualname__
+    wrapped.__doc__ = func.__doc__
+    rs_funcs[func.__name__] = wrapped
+    return wrapped
+
+
+def resampling(scheme, gen, W, M=None):
+    """Ancestor indices of scheme ``scheme`` (by name): (M,) int64."""
+    if scheme not in rs_funcs:
+        raise ValueError(f"{scheme} is not a valid resampling scheme")
+    return rs_funcs[scheme](gen, W, M)
+
+
+@resampling_scheme
+def multinomial(gen, W, M):
+    """Multinomial resampling: sorted ancestors (B3, B5, B2)."""
+    return ancestors_by_z(multinomial_z(gen, W, M), M)
+
+
+@resampling_scheme
+def stratified(gen, W, M):
+    """Stratified resampling: sorted ancestors (B3, B2)."""
+    return ancestors_by_z(stratified_z(gen, W, M), M)
+
+
+@resampling_scheme
+def systematic(gen, W, M):
+    """Systematic resampling: sorted ancestors (B1, B2)."""
+    return ancestors_by_z(systematic_z(gen, W, M), M)
+
+
+@resampling_scheme
+def residual(gen, W, M):
+    """Residual resampling: floor(M W_n) copies of each particle, the
+    remaining slots filled by multinomial draws on the residual weights;
+    sorted ancestors."""
+    return counts_to_ancestors(residual_counts(gen, W, M), M)
+
+
+@resampling_scheme
+def ssp(gen, W, M):
+    """SSP resampling (see :func:`ssp_counts`): sorted ancestors."""
+    return counts_to_ancestors(ssp_counts(gen, W, M), M)
+
+
+@resampling_scheme
+def killing(gen, W, M):
+    """Killing resampling: particle n survives with probability
+    W_n / max(W); killed slots get IID multinomial draws (B3, B4).
+    Defined only for M == N."""
+    N = W.shape[0]
+    if M != N:
+        raise ValueError("killing resampling defined only for M=N")
+    killed = torch.rand(N, generator=gen, device=W.device) * W.max() >= W
+    replacements = multinomial_iid(gen, W, N)
+    return torch.where(killed, replacements,
+                       torch.arange(N, device=W.device))
+
+
+@resampling_scheme
+def idiotic(gen, W, M):
+    """Idiotic resampling, for tests: M copies of one multinomial draw."""
+    return multinomial_once(gen, W).reshape(1).repeat(M)
+
+
+def _pinned_cdf(W):
+    """The monotone CDF (B3) with its top pinned to 1, above every uniform
+    draw."""
+    cs, _ = _normalised_cumsum_mono(W)
+    cs[-1:].fill_(1.0)
+    return cs
+
+
+def multinomial_iid(gen, W, M=None):
+    """Multinomial resampling with IID (unsorted) output: (M,) int64
+    ancestors ``#{i: cs_i < u_j}`` of M unsorted uniforms, served by B4 on
+    the B3 CDF.  A binary search per query needs no sorted stream, so the
+    JAX package's sort-serve-unsort is not carried over."""
+    M = W.shape[0] if M is None else M
+    u = torch.rand(M, generator=gen, device=W.device)
+    return ancestors_by_su(u, _pinned_cdf(W))
+
+
+def multinomial_iid_values(gen, W, cols, M=None):
+    """:func:`multinomial_iid` plus the served values ``[c[A] for c in
+    cols]``, in one B4 launch: returns ``(A, values)``."""
+    M = W.shape[0] if M is None else M
+    u = torch.rand(M, generator=gen, device=W.device)
+    values, A = repeat_cols_su(u, _pinned_cdf(W), M, cols, want_anc=True)
+    return A, values
+
+
+class MultinomialQueue:
+    """On-the-fly multinomial draws in amortised O(1) per draw (host-side
+    helper of the reference library)."""
+
+    def __init__(self, gen, W, M=None):
+        self.W = W
+        self.M = W.shape[0] if M is None else M
+        self.gen = gen
+        self.j = 0
+        self.enqueue()
+
+    def enqueue(self):
+        self.A = multinomial_iid(self.gen, self.W, self.M)
+
+    def dequeue(self, k):
+        """Return the next *k* multinomial draws."""
+        if self.j + k <= self.M:
+            out = self.A[self.j:self.j + k]
+            self.j += k
+        elif k <= self.M:
+            nextra = self.j + k - self.M
+            head = self.A[self.j:]
+            self.enqueue()
+            out = torch.cat([head, self.A[:nextra]])
+            self.j = nextra
+        else:
+            raise ValueError("MultinomialQueue: k must be <= M")
+        return out

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from particles_tpu_torch.core import FeynmanKac
-from particles_tpu_torch.utils import KwParams
+from particles_tpu_torch.utils import KwParams, resolve_device
 
 __all__ = ["StateSpaceModel", "Bootstrap"]
 
@@ -70,12 +70,17 @@ class StateSpaceModel(KwParams):
 class Bootstrap(FeynmanKac):
     """Bootstrap Feynman-Kac formalism of a state-space model: particles
     move by the model's transition and are weighted by the likelihood of
-    the data."""
+    the data.
 
-    def __init__(self, ssm=None, data=None):
+    ``data`` that is not a tensor (a numpy array, a list) becomes a
+    float32 tensor on ``device``, by default the current CUDA card (with
+    no card, pass ``device="cpu"``); a tensor keeps its device."""
+
+    def __init__(self, ssm=None, data=None, device=None):
         self.ssm = ssm
         if data is not None and not isinstance(data, torch.Tensor):
-            data = torch.as_tensor(data, dtype=torch.float32)
+            data = torch.as_tensor(data, dtype=torch.float32,
+                                   device=resolve_device(device))
         self.data = data
 
     @property

@@ -1,17 +1,19 @@
-"""Utilities: the parameter-merging base class and the ``timer`` decorator
-(counterparts of ``particles_tpu.utils.struct.KwPytree`` and
-``particles_tpu.utils.timer``)."""
+"""Utilities: the parameter-merging base class, the ``timer`` decorator,
+``cartesian_args`` (counterparts of ``particles_tpu.utils.struct.
+KwPytree``, ``particles_tpu.utils.timer`` and ``cartesian_args``) and
+``resolve_device``, the port's rule for where an entry point runs."""
 
 from __future__ import annotations
 
 import difflib
 import functools
+import itertools
 import time
 import warnings
 
 import torch
 
-__all__ = ["KwParams", "timer"]
+__all__ = ["KwParams", "timer", "cartesian_args", "resolve_device"]
 
 
 class KwParams:
@@ -55,3 +57,47 @@ def timer(method):
         return out
 
     return timed_method
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: ``device`` when given, else the
+    current CUDA card.  With no card it raises: an entry point never falls
+    back to the CPU unless asked with ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card (torch.cuda.is_available() is False): pass "
+                'device="cpu" to run on the CPU')
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def cartesian_args(args):
+    """Expand dict/list-valued options into lists of flat option dicts:
+    ``(labels_list, values_list)``.
+
+    A list value gives one combination per element; a dict value one per
+    (name, value) pair, with the *name* as the label.  Scalar values are
+    broadcast.
+    """
+    fixed, varying = {}, {}
+    for k, v in args.items():
+        if isinstance(v, list):
+            varying[k] = [(val, val) for val in v]
+        elif isinstance(v, dict):
+            varying[k] = list(v.items())
+        else:
+            fixed[k] = v
+    names = list(varying)
+    labels_list, values_list = [], []
+    for combo in itertools.product(*(varying[k] for k in names)):
+        labels, values = dict(fixed), dict(fixed)
+        for k, (label, val) in zip(names, combo):
+            labels[k] = label
+            values[k] = val
+        labels_list.append(labels)
+        values_list.append(values)
+    return labels_list, values_list

@@ -15,7 +15,7 @@ import torch
 
 from particles_tpu_torch import kalman, ops
 from particles_tpu_torch import state_space_models as ssms
-from particles_tpu_torch.core import SMC
+from particles_tpu_torch.core import SMC, multiSMC
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +87,93 @@ def test_wrappers_check_before_launching(dev):
     assert ops.repeat_cols.launches == before[1]
 
 
+@pytest.mark.parametrize("N", [1, 7, 1000, 65539])
+@pytest.mark.parametrize("alpha", [1.0, 0.05])
+def test_normalised_cumsum_kernel_matches_plain(dev, N, alpha):
+    """Monotone, top within 1e-6 of 1, and within N 2^-31 + 1e-6 of the
+    plain version (the sum S is taken in another order)."""
+    W = torch.from_numpy(_weights(N, alpha, N + 2)).to(dev)
+    before = ops.normalised_cumsum_exact.launches
+    cs = ops.normalised_cumsum_exact(W)
+    assert ops.normalised_cumsum_exact.launches == before + 1
+    cp = ops.normalised_cumsum_plain(W)
+    torch.cuda.synchronize()
+    assert cs.dtype == torch.float32 and cs.shape == (N,)
+    assert float((cs - cp).abs().max()) < N * 2**-31 + 1e-6
+    assert bool((cs[1:] >= cs[:-1]).all()) and abs(float(cs[-1]) - 1) < 1e-6
+
+
+def _cdf(W):
+    cs = ops.normalised_cumsum_exact(W)
+    cs[-1] = 1.0
+    return cs
+
+
+@pytest.mark.parametrize("N,k", [(1, 1), (1000, 1), (65539, 1), (1000, 4)])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_repeat_su_kernel_matches_plain(dev, N, k, order):
+    """Exact: sorted and unsorted queries, M = k N, several dtypes, the
+    fused form with ancestors and the ancestors-only form."""
+    cs = _cdf(torch.from_numpy(_weights(N, 0.3, N + 3)).to(dev))
+    u = torch.rand(k * N, device=dev)
+    if order == "sorted":
+        u = u.sort().values
+    cols = [torch.randn(N, device=dev),
+            torch.randn(N, 2, device=dev, dtype=torch.float64),
+            torch.randint(2 ** 24, 2 ** 31 - 1, (N,), device=dev,
+                          dtype=torch.int32),
+            torch.randint(-128, 127, (N,), device=dev, dtype=torch.int8),
+            torch.randn(N, 3, device=dev).to(torch.float16)]
+    before = ops.repeat_cols_su.launches
+    served, A = ops.repeat_cols_su(u, cs, k * N, cols, want_anc=True)
+    A_only = ops.ancestors_by_su(u, cs)
+    assert ops.repeat_cols_su.launches == before + 2
+    ref, A_ref = ops.repeat_cols_su_plain(u, cs, k * N, cols, want_anc=True)
+    torch.cuda.synchronize()
+    assert A.dtype == torch.int64
+    assert torch.equal(A, A_ref) and torch.equal(A_only, A_ref)
+    for y, yp in zip(served, ref, strict=True):
+        assert y.dtype == yp.dtype and torch.equal(y, yp)
+
+
+@pytest.mark.parametrize("N,L,M", [(1000, 1000, 1000), (65539, 65539, 65539),
+                                   (1000, 3000, 2000), (1000, 10, 10)])
+def test_merge_rank_kernel_matches_plain(dev, N, L, M):
+    """Exact, M != N included, with ties (su holding cs values) and, for
+    the kernel, a nondecreasing z on an su one ulp out of order."""
+    cs = _cdf(torch.from_numpy(_weights(N, 0.3, N + 4)).to(dev))
+    su = torch.rand(L, device=dev)
+    tied = torch.cat([su[: L // 2], cs[torch.randint(0, N, (L - L // 2,),
+                                                     device=dev)]])
+    for s in (su.sort().values, tied.sort().values):
+        before = ops.merge_rank_counts.launches
+        z = ops.merge_rank_counts(s, cs, M)
+        assert ops.merge_rank_counts.launches == before + 1
+        zp = ops.merge_rank_counts_plain(s, cs, M)
+        torch.cuda.synchronize()
+        assert z.dtype == torch.int32 and torch.equal(z, zp)
+    dip = su.sort().values
+    if L > 2:
+        dip[1::7] = torch.nextafter(dip[0:-1:7], torch.zeros(()).to(dev))
+        z = ops.merge_rank_counts(dip, cs, M)
+        assert bool((z[1:] >= z[:-1]).all())
+
+
+@pytest.mark.parametrize("N", [1, 7, 1000, 1025, 65539])
+def test_running_max_kernel_matches_plain(dev, N):
+    """Exact on negative values and unaligned N."""
+    z = torch.randint(-2 ** 31, 2 ** 31 - 1, (N,), device=dev,
+                      dtype=torch.int32)
+    before = ops.running_max.launches
+    y = ops.running_max(z)
+    assert ops.running_max.launches == before + 1
+    torch.cuda.synchronize()
+    assert y.dtype == torch.int32
+    assert torch.equal(y, ops.running_max_plain(z))
+    w = torch.randint(-5, 0, (N,), device=dev, dtype=torch.int32)
+    assert torch.equal(ops.running_max(w), torch.cummax(w, 0).values)
+
+
 def test_bootstrap_filter_on_the_card(dev):
     """Small filter on the card: logLt within 0.5 of the float64 Kalman
     logLt, and each kernel launched once per resampling step."""
@@ -107,3 +194,77 @@ def test_bootstrap_filter_on_the_card(dev):
     assert ops.systematic_z_fused.launches == ops.repeat_cols.launches == n_rs
     assert pf.X.device.type == "cuda"
     assert abs(float(pf.logLt) - kf) < 0.5
+
+
+def test_every_scheme_on_the_card(dev):
+    """multiSMC over every scheme with numpy data and no device: each run
+    on the card, logLt within 0.5 of Kalman, and each kernel launched once
+    per resampling step, in the scheme's combination."""
+    rng = np.random.default_rng(1)
+    T, N = 30, 2 ** 14
+    xs = np.zeros(T)
+    for t in range(1, T):
+        xs[t] = 0.9 * xs[t - 1] + rng.normal()
+    y = (xs + 0.2 * rng.normal(size=T)).astype(np.float32)
+    ssm = kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
+    kf = float(kalman.Kalman(ssm=ssm,
+                             data=torch.from_numpy(y.astype(np.float64))).logLt)
+    fk = ssms.Bootstrap(ssm=ssm, data=y)
+    assert fk.data.device.type == "cuda"
+    expected = {"systematic": {"systematic_z", "repeat_by_z"},
+                "stratified": {"normalised_cumsum", "repeat_by_z"},
+                "multinomial": {"normalised_cumsum", "merge_rank_counts",
+                                "repeat_by_z"},
+                "residual": {"normalised_cumsum", "merge_rank_counts",
+                             "repeat_by_z"},
+                "ssp": {"repeat_by_z"},
+                "killing": {"normalised_cumsum", "repeat_by_su"}}
+    seen = []
+
+    def out(res):
+        seen.append({k: f.launches for k, f in ops.KERNELS.items()})
+        return res
+
+    for f in ops.KERNELS.values():
+        f.launches = 0
+    seen.append({k: 0 for k in ops.KERNELS})
+    runs = multiSMC(fk=fk, N=N, resampling=list(expected), nruns=1,
+                    out_func=out)
+    for k, entry in enumerate(runs):
+        res = entry["output"]
+        n_rs = int(res.rs_flags.sum())
+        assert n_rs > 0 and res.lw.device.type == "cuda"
+        assert abs(float(res.logLt) - kf) < 0.5, entry["resampling"]
+        for name in ops.KERNELS:
+            n = seen[k + 1][name] - seen[k][name]
+            want = n_rs if name in expected[entry["resampling"]] else 0
+            assert n == want, (entry["resampling"], name, n, n_rs)
+
+
+def test_step_syncs_only_on_the_decision(dev):
+    """The step's one host sync is the resampling decision: with the
+    decision returned as a host bool, whole resampling steps of every
+    scheme run with synchronising operations made errors.  The
+    sequential SSP below 8192 particles is the stated exception, so N is
+    above it (the tree pairing)."""
+    from particles_tpu_torch import resampling as rs
+
+    class Always(ssms.Bootstrap):
+        def time_to_resample(self, smc):
+            return True
+
+    y = torch.randn(4, device=dev)
+    fk = Always(ssm=kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2),
+                data=y)
+    for scheme in rs.rs_funcs:
+        pf = SMC(fk=fk, N=3 * rs._SSP_BLOCKED_MIN, resampling=scheme,
+                 seed=0)
+        next(pf)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            next(pf)
+            next(pf)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert pf.t == 3 and pf.rs_flag is True, scheme

@@ -21,6 +21,7 @@ import particles_tpu.resampling as jrs
 import particles_tpu.state_space_models as jssms
 import particles_tpu_torch.resampling as trs
 from particles_tpu_torch import collectors, convert, core, kalman, ops
+from particles_tpu_torch import state_space_models as ssms
 
 PARAMS = dict(rho=0.9, sigmaX=1.0, sigmaY=0.2)
 
@@ -38,9 +39,10 @@ def _models(y):
     jssm = jk.LinearGauss(**PARAMS)
     tssm = convert.ssm_from_params(
         "LinearGauss",
-        {k: np.asarray(getattr(jssm, k)) for k in jssm.default_params})
+        {k: np.asarray(getattr(jssm, k)) for k in jssm.default_params},
+        device="cpu")
     return (jssms.Bootstrap(ssm=jssm, data=jnp.asarray(y)),
-            convert.bootstrap_from_numpy(tssm, y))
+            convert.bootstrap_from_numpy(tssm, y, device="cpu"))
 
 
 @pytest.fixture
@@ -170,8 +172,6 @@ def test_mv_model_and_dict_particles():
     are served leaf by leaf in one call too."""
     ssm = kalman.MVLinearGauss_Guarniero_etal(alpha=0.4, dx=2)
     x, y = ssm.simulate(torch.Generator().manual_seed(3), 10)
-    from particles_tpu_torch import state_space_models as ssms
-
     kf = float(kalman.Kalman(ssm=ssm, data=y.double()).logLt)
     runs = []
     for s in range(4):
@@ -209,8 +209,7 @@ def test_genealogy_collector_gets_ancestors():
 
 def test_unported_options_raise():
     _, tfk = _models(_simulate(5, 5))
-    for kw in ({"resampling": "stratified"}, {"qmc": True},
-               {"store_history": True}):
+    for kw in ({"qmc": True}, {"store_history": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             core.SMC(fk=tfk, N=64, **kw)
     with pytest.raises(ValueError):
@@ -231,3 +230,31 @@ def test_unported_options_raise():
     off = core.SMC(fk=tfk, N=64, collect="off")
     off.run()
     assert off.summaries is None and np.isfinite(float(off.logLt))
+
+
+def test_numpy_data_never_runs_on_the_cpu_by_default(monkeypatch):
+    """Without a card, every entry point that would place numpy data or
+    parameters raises, naming device="cpu", instead of running on the
+    CPU; with device="cpu" (or CPU tensors) it runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    y = _simulate(6, 6)
+    ssm = kalman.LinearGauss(**PARAMS)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ssms.Bootstrap(ssm=ssm, data=y)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        convert.bootstrap_from_numpy(ssm, y)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        convert.ssm_from_params("LinearGauss", {"rho": np.float32(0.9)})
+
+    class NoData(core.FeynmanKac):
+        T = 3
+
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        core.SMC(fk=NoData(), N=8)
+    fk = ssms.Bootstrap(ssm=ssm, data=y, device="cpu")
+    assert fk.data.device.type == "cpu" and fk.data.dtype == torch.float32
+    pf = core.SMC(fk=fk, N=64, seed=0)
+    assert pf.device.type == "cpu"
+    pf.run()
+    on_given = core.SMC(fk=NoData(), N=8, generator=torch.Generator())
+    assert on_given.device.type == "cpu"

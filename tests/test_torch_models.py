@@ -104,7 +104,7 @@ def _assert_kalman_close(jkf, tkf):
 def test_kalman_linear_gauss_matches_jax():
     jssm = jk.LinearGauss(rho=0.8, sigmaX=1.2, sigmaY=0.5)
     params = {k: np.asarray(getattr(jssm, k)) for k in jssm.default_params}
-    tssm = convert.ssm_from_params("LinearGauss", params)
+    tssm = convert.ssm_from_params("LinearGauss", params, device="cpu")
     assert isinstance(tssm, tk.LinearGauss)
     assert tssm.sigma0 == float(params["sigma0"])
     _assert_kalman_close(*_kalman_pair(jssm, tssm, _ar_data(30, 1, 0)))
@@ -121,7 +121,7 @@ def test_kalman_mv_linear_gauss_matches_jax():
     )
     jssm = jk.MVLinearGauss(**{k: jnp.asarray(v) for k, v in mats.items()})
     params = {k: np.asarray(getattr(jssm, k)) for k in mats}
-    tssm = convert.ssm_from_params("MVLinearGauss", params)
+    tssm = convert.ssm_from_params("MVLinearGauss", params, device="cpu")
     _assert_kalman_close(*_kalman_pair(jssm, tssm, _ar_data(30, 2, 1)))
 
 

@@ -267,7 +267,8 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         "import particles_tpu_torch as p\n"
         "for m in p._SUBMODULES + ('_build', 'ops.z_kernel', "
-        "'ops.repeat_kernel'):\n"
+        "'ops.repeat_kernel', 'ops.merge_rank_kernel', "
+        "'ops.cummax_kernel'):\n"
         "    importlib.import_module('particles_tpu_torch.' + m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'particles_tpu')]\n"

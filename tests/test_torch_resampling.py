@@ -97,7 +97,11 @@ def test_numerics_match_jax():
 
 
 def test_scheme_registry():
-    assert set(trs.rs_funcs) == set(trs.rs_z_funcs) == {"systematic"}
+    assert set(trs.rs_funcs) == {"systematic", "stratified", "multinomial",
+                                 "residual", "ssp", "killing", "idiotic"}
+    assert set(trs.rs_counts_funcs) == set(trs.rs_funcs) - {"killing",
+                                                             "idiotic"}
+    assert set(trs.rs_z_funcs) == {"systematic", "stratified", "multinomial"}
     W = torch.from_numpy(
         np.random.default_rng(2).dirichlet(np.ones(300)).astype(np.float32))
     g = torch.Generator().manual_seed(5)
@@ -110,10 +114,12 @@ def test_scheme_registry():
     g = torch.Generator().manual_seed(5)
     np.testing.assert_array_equal(
         trs.systematic(g, W, 150).numpy(), ops.ancestors_by_z(z, 150).numpy())
-    for name in ("multinomial", "stratified", "residual", "ssp", "killing"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            trs.resampling(name, g, W)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+    for name in trs.rs_counts_funcs:
+        z = trs.resampling_z(name, g, W, M=150)
+        assert z.dtype == torch.int32 and int(z[-1]) == 150
+        assert bool((z[1:] >= z[:-1]).all())
+    for name in ("killing", "idiotic"):
+        with pytest.raises(ValueError, match="no counts-based"):
             trs.resampling_z(name, g, W)
     with pytest.raises(ValueError):
         trs.resampling("nonsense", g, W)
