@@ -23,14 +23,22 @@ not 0 and no result line is printed.  It exits with an error at once when
 3. Kernel B2 (resampling move) against its plain version, exact: f32, f64,
    int32 >= 2^24, int64, int8, (N, 2) f32 and (N, 3) f16 payloads, the
    fused form with ancestors, ancestors alone, more payloads than one
-   launch takes, and M != N.
+   launch takes, and M != N; then counts built to strain the merge path
+   (N = 2^20 - 513, not a multiple of a block's items): all offspring on
+   the first, a middle or the last particle, counts all 1, zero counts in
+   runs longer than a block's items, N = 1, M = 1, N/2 + 1 and 4N, and
+   N, M both unaligned and small.
 4. The main path: ``SMC(Bootstrap(LinearGauss(rho=0.9, sigmaX=1,
    sigmaY=0.2), y), N=2^20).run()`` for T=1000 on the card; logLt finite
    and within 0.5 of the float64 Kalman logLt (its standard deviation is
    about sqrt(T * 2.7 / N) = 0.05); each kernel launched once per
    resampling step.  Two runs, the second warm and timed.
 5. Kernel B3 (monotone normalised cumsum) against its plain version and a
-   float64 oracle, at phase 2's sizes and weights: nondecreasing,
+   float64 oracle, at phase 2's sizes and weights, then at N one past a
+   tile, one past the largest one-tile chunk, one past what shared memory
+   holds, and 2^24, and at N = 2^20 on all weight on one particle
+   (first, middle, last), weights that are mostly zero, and a sum S just
+   above 2^30 / FLT_MAX (the least S with a finite scale): nondecreasing,
    ``|cs[-1] - 1| < 1e-6``, within N 2^-31 + 1e-6 of both.
 6. Kernel B5 (sorted-merge rank count) against its plain version, exact:
    sorted uniforms, uniforms tied with cs values, L = 2N + 1 and L = N/2 + 1
@@ -50,8 +58,11 @@ not 0 and no result line is printed.  It exits with an error at once when
    ``idiotic`` at T=50: it runs and launches no kernel.
 10. Kernel times at N = 2^20 (CUDA events, median of 25 batches of 10
     calls) beside the plain version's, the one PyTorch call that computes
-    the same function where there is one, and the bound, then the kernels
-    line and the result line.
+    the same function where there is one, and the bound; each kernel's and
+    library call's device time (``device_ms``: the sum of its CUDA
+    kernels' time in a ``torch.profiler`` window of 20 calls, per call) and
+    CUDA kernels per call (``launches_per_call``: 1 for B2 and B3); then
+    the kernels line and the result line.
 """
 
 import json
@@ -112,6 +123,49 @@ def _oracle_z(W, u, M):
     return z
 
 
+def _payloads(torch, dev, N):
+    """Phase 3's payload dtypes and widths, (N, ...) each."""
+    return [
+        torch.randn(N, device=dev),
+        torch.randn(N, device=dev, dtype=torch.float64),
+        torch.randint(2 ** 24, 2 ** 31 - 1, (N,), device=dev,
+                      dtype=torch.int32),
+        torch.randint(-2 ** 62, 2 ** 62, (N,), device=dev,
+                      dtype=torch.int64),
+        torch.randint(-128, 127, (N,), device=dev, dtype=torch.int8),
+        torch.randn(N, 2, device=dev),
+        torch.randn(N, 3, device=dev).to(torch.float16),
+    ]
+
+
+def _strained_counts(rng, tile):
+    """(name, offspring counts, M) that strain the z-move's merge path."""
+    N = N_MAIN - 513
+
+    def one_hot(k):
+        c = np.zeros(N, dtype=np.int64)
+        c[k] = N
+        return c
+
+    def random_counts(n, m):
+        return rng.multinomial(m, rng.dirichlet(np.full(n, 0.3)))
+
+    runs = np.zeros(N, dtype=np.int64)
+    burst = np.arange(0, N, 3 * tile + 2)      # 3 blocks of zeros between
+    runs[burst] = rng.multinomial(N, np.full(len(burst), 1.0 / len(burst)))
+    cases = [("all on the first", one_hot(0), N),
+             ("all on a middle one", one_hot(N // 2), N),
+             ("all on the last", one_hot(N - 1), N),
+             ("counts all 1", np.ones(N, dtype=np.int64), N),
+             ("zero runs of 3 blocks", runs, N),
+             ("N=1 M=1", np.array([1]), 1), ("N=1 M=5", np.array([5]), 5)]
+    for M in (1, N // 2 + 1, 4 * N):
+        cases.append((f"M={M}", random_counts(N, M), M))
+    cases.append((f"N={3 * tile + 5} M={2 * tile + 7}",
+                  random_counts(3 * tile + 5, 2 * tile + 7), 2 * tile + 7))
+    return cases
+
+
 def _simulate_y(T):
     """Observations of the main path's model, from a numpy seed."""
     rng = np.random.default_rng(1)
@@ -137,6 +191,35 @@ def _time_ms(torch, fn, batches=25, per_batch=10):
         end.synchronize()
         samples.append(start.elapsed_time(end) / per_batch)
     return float(np.median(samples))
+
+
+def _device_window(torch, fn, calls):
+    """({CUDA kernel: device ms a call}, CUDA kernels a call) of ``fn``,
+    from a ``torch.profiler`` window of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel, n = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = evt.key[:100]
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + evt.self_device_time_total / 1000.0 / calls)
+            n += evt.count
+    _check(n > 0, "the profiler recorded no CUDA kernel")
+    return by_kernel, n / calls
+
+
+def _device_ms(torch, fn, calls=20):
+    """(device ms a call, CUDA kernels a call) of ``fn``."""
+    by_kernel, per_call = _device_window(torch, fn, calls)
+    return sum(by_kernel.values()), per_call
 
 
 def main():
@@ -212,44 +295,49 @@ def main():
     # -- 3. B2 against its plain version, exact -----------------------------
     b2_err = 0.0
     n_cases = 0
+
+    def check_b2(tag, forms):
+        nonlocal b2_err, n_cases
+        torch.cuda.synchronize()
+        for form, (ys, A), (yps, Ap) in forms:
+            for y, yp in zip(ys, yps, strict=True):
+                _check(y.dtype == yp.dtype and y.shape == yp.shape,
+                       f"{tag} {form}: {y.dtype}{tuple(y.shape)} vs "
+                       f"{yp.dtype}{tuple(yp.shape)}")
+                d = float((y.double() - yp.double()).abs().max())
+                b2_err = max(b2_err, d)
+                _check(torch.equal(y, yp), f"{tag} {form}: {y.dtype} "
+                                           f"payload differs (max {d})")
+            if Ap is not None:
+                _check(A is not None and A.dtype == torch.int64
+                       and torch.equal(A, Ap), f"{tag} {form}: ancestors "
+                                               f"differ")
+            n_cases += 1
+
     for (N, M), z in zs.items():
-        cols = [
-            torch.randn(N, device=dev),
-            torch.randn(N, device=dev, dtype=torch.float64),
-            torch.randint(2 ** 24, 2 ** 31 - 1, (N,), device=dev,
-                          dtype=torch.int32),
-            torch.randint(-2 ** 62, 2 ** 62, (N,), device=dev,
-                          dtype=torch.int64),
-            torch.randint(-128, 127, (N,), device=dev, dtype=torch.int8),
-            torch.randn(N, 2, device=dev),
-            torch.randn(N, 3, device=dev).to(torch.float16),
-        ]
-        forms = [
+        cols = _payloads(torch, dev, N)
+        many = [torch.randn(N, device=dev)
+                for _ in range(ops.MAX_PAYLOADS + 2)]
+        check_b2(f"B2 N={N} M={M}", [
             ("fused+anc", ops.repeat_cols(z, M, cols, want_anc=True),
              ops.repeat_cols_plain(z, M, cols, want_anc=True)),
             ("anc only", ([], ops.ancestors_by_z(z, M)),
              ops.repeat_cols_plain(z, M, [], want_anc=True)),
-        ]
-        many = [torch.randn(N, device=dev)
-                for _ in range(ops.MAX_PAYLOADS + 2)]
-        forms.append(("two launches", ops.repeat_cols(z, M, many),
-                      ops.repeat_cols_plain(z, M, many)))
-        torch.cuda.synchronize()
-        for form, (ys, A), (yps, Ap) in forms:
-            tag = f"B2 N={N} M={M} {form}"
-            for y, yp in zip(ys, yps, strict=True):
-                _check(y.dtype == yp.dtype and y.shape == yp.shape,
-                       f"{tag}: {y.dtype}{tuple(y.shape)} vs "
-                       f"{yp.dtype}{tuple(yp.shape)}")
-                d = float((y.double() - yp.double()).abs().max())
-                b2_err = max(b2_err, d)
-                _check(torch.equal(y, yp), f"{tag}: {y.dtype} payload "
-                                           f"differs (max {d})")
-            if Ap is not None:
-                _check(A is not None and A.dtype == torch.int64
-                       and torch.equal(A, Ap), f"{tag}: ancestors differ")
-            n_cases += 1
+            ("two launches", ops.repeat_cols(z, M, many),
+             ops.repeat_cols_plain(z, M, many))])
+    n_strained = 0
+    for name, counts, M in _strained_counts(rng, ops.MERGE_TILE):
+        N = len(counts)
+        z = torch.from_numpy(np.cumsum(counts).astype(np.int32)).to(dev)
+        cols = _payloads(torch, dev, N)
+        check_b2(f"B2 {name} (N={N} M={M})", [
+            ("fused+anc", ops.repeat_cols(z, M, cols, want_anc=True),
+             ops.repeat_cols_plain(z, M, cols, want_anc=True)),
+            ("anc only", ([], ops.ancestors_by_z(z, M)),
+             ops.repeat_cols_plain(z, M, [], want_anc=True))])
+        n_strained += 1
     _emit({"phase": 3, "kernel": "repeat_by_z", "cases": n_cases,
+           "strained_count_vectors": n_strained,
            "max_abs_err_vs_plain": b2_err, "tolerance": "exact"})
 
     # -- 4. the main path at full width --------------------------------------
@@ -299,31 +387,51 @@ def main():
     b3_err = 0.0
     n_cases = 0
     cdfs = {}
+
+    def check_b3(tag, W_np):
+        nonlocal b3_err, n_cases
+        N = len(W_np)
+        W = torch.from_numpy(W_np).to(dev)
+        cs = ops.normalised_cumsum_exact(W)
+        cp = ops.normalised_cumsum_plain(W)
+        torch.cuda.synchronize()
+        csc, cpc = cs.cpu().numpy(), cp.cpu().numpy()
+        W64 = W_np.astype(np.float64)
+        co = np.cumsum(W64) / W64.sum()
+        tol = N * 2.0 ** -31 + 1e-6
+        _check(cs.dtype == torch.float32 and csc.shape == (N,),
+               f"{tag}: shape")
+        _check(bool(np.all(np.diff(csc) >= 0)), f"{tag}: not nondecreasing")
+        _check(abs(csc[-1] - 1.0) < 1e-6, f"{tag}: cs[-1] = {csc[-1]}")
+        dp = float(np.abs(csc - cpc).max())
+        do = float(np.abs(csc - co).max())
+        _check(dp < tol, f"{tag}: |cs - plain| = {dp} >= {tol}")
+        _check(do < tol, f"{tag}: |cs - oracle| = {do} >= {tol}")
+        b3_err = max(b3_err, dp)
+        n_cases += 1
+        return cs
+
     for N in Ns:
         for wkind in kinds:
-            W_np = _dirichlet_like(rng, wkind, N)
-            W = torch.from_numpy(W_np).to(dev)
-            cs = ops.normalised_cumsum_exact(W)
-            cp = ops.normalised_cumsum_plain(W)
-            torch.cuda.synchronize()
-            csc, cpc = cs.cpu().numpy(), cp.cpu().numpy()
-            W64 = W_np.astype(np.float64)
-            co = np.cumsum(W64) / W64.sum()
-            tol = N * 2.0 ** -31 + 1e-6
-            tag = f"B3 N={N} {wkind}"
-            _check(cs.dtype == torch.float32 and csc.shape == (N,),
-                   f"{tag}: shape")
-            _check(bool(np.all(np.diff(csc) >= 0)), f"{tag}: not "
-                                                    f"nondecreasing")
-            _check(abs(csc[-1] - 1.0) < 1e-6, f"{tag}: cs[-1] = {csc[-1]}")
-            dp = float(np.abs(csc - cpc).max())
-            do = float(np.abs(csc - co).max())
-            _check(dp < tol, f"{tag}: |cs - plain| = {dp} >= {tol}")
-            _check(do < tol, f"{tag}: |cs - oracle| = {do} >= {tol}")
-            b3_err = max(b3_err, dp)
-            n_cases += 1
-            cdfs[(N, wkind)] = cs
+            cdfs[(N, wkind)] = check_b3(
+                f"B3 N={N} {wkind}", _dirichlet_like(rng, wkind, N))
+    tile, cache_tiles, max_grid = ops.normalised_cumsum_geometry(dev)
+    for N in (tile + 1, max_grid * tile + 1,
+              max_grid * cache_tiles * tile + 1, 2 ** 24):
+        check_b3(f"B3 N={N}", _dirichlet_like(rng, "dirichlet1", N))
+    for k in (0, N_MAIN // 2, N_MAIN - 1):
+        W_np = np.zeros(N_MAIN, dtype=np.float32)
+        W_np[k] = 1.0
+        check_b3(f"B3 all weight on particle {k}", W_np)
+    W_np = np.zeros(N_MAIN, dtype=np.float32)
+    W_np[rng.choice(N_MAIN, 5, replace=False)] = rng.random(5)
+    check_b3("B3 mostly zero", W_np)
+    # the least S for which 2^30 / S is a finite f32 is about 3.2e-30
+    check_b3("B3 S = 4e-30", (_dirichlet_like(rng, "dirichlet1", N_MAIN)
+                              * np.float32(4e-30)).astype(np.float32))
     _emit({"phase": 5, "kernel": "normalised_cumsum", "cases": n_cases,
+           "geometry": {"tile": tile, "cache_tiles": cache_tiles,
+                        "max_grid": max_grid},
            "max_abs_err_vs_plain": b3_err,
            "tolerance": "nondecreasing, |cs[-1] - 1| < 1e-6, "
                         "|dcs| < N 2^-31 + 1e-6 vs plain and float64"})
@@ -362,17 +470,7 @@ def main():
             continue
         cs1 = cs.clone()
         cs1[-1] = 1.0
-        cols = [
-            torch.randn(N, device=dev),
-            torch.randn(N, device=dev, dtype=torch.float64),
-            torch.randint(2 ** 24, 2 ** 31 - 1, (N,), device=dev,
-                          dtype=torch.int32),
-            torch.randint(-2 ** 62, 2 ** 62, (N,), device=dev,
-                          dtype=torch.int64),
-            torch.randint(-128, 127, (N,), device=dev, dtype=torch.int8),
-            torch.randn(N, 2, device=dev),
-            torch.randn(N, 3, device=dev).to(torch.float16),
-        ]
+        cols = _payloads(torch, dev, N)
         u = torch.rand(N, device=dev)
         forms = [("unsorted", u), ("sorted", u.sort().values),
                  ("M=4N", torch.rand(4 * N, device=dev))]
@@ -486,7 +584,7 @@ def main():
             lambda: ops.ancestors_by_z(z, M),
             lambda: ops.repeat_cols_plain(z, M, [], want_anc=True),
             lambda: torch.searchsorted(z, j, right=True),
-            4 * N + 8 * M, M * log2n),
+            4 * N + 8 * M, N + M),
         "normalised_cumsum": (
             lambda: ops.normalised_cumsum_exact(W),
             lambda: ops.normalised_cumsum_plain(W),
@@ -531,6 +629,9 @@ def main():
     for name, (kern, plain, lib, nbytes, nops) in work.items():
         source, replaces, err, path = meta[name]
         ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+        device_ms, per_call = _device_ms(torch, kern)
+        if name in ("normalised_cumsum", "repeat_by_z"):
+            _check(per_call == 1, f"{name}: {per_call} CUDA kernels a call")
         by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         by_ops = 1e3 * nops / OPS_PER_S
         path_launches = launches if path == "main path" else multi_launches
@@ -541,15 +642,29 @@ def main():
             "launches_path": path, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None if lib is None else _time_ms(torch, lib)})
-    b2_col_ms = _time_ms(torch, lambda: ops.repeat_cols(z, M, [x]))
-    b2_col_plain_ms = _time_ms(torch,
-                               lambda: ops.repeat_cols_plain(z, M, [x]))
+            "library_ms": None if lib is None else _time_ms(torch, lib),
+            "device_ms": device_ms, "launches_per_call": per_call,
+            "library_device_ms": (None if lib is None
+                                  else _device_ms(torch, lib)[0])})
+    # B2 as the main path calls it: one f32 column, on Dirichlet(1) z and
+    # on the main path's degenerate weights (one particle takes nearly all)
+    z_deg = ops.systematic_z_fused(torch.from_numpy(
+        _dirichlet_like(rng, "degenerate", N)).to(dev), u, M)
+    b2_col = {}
+    for zname, zz in (("dirichlet1", z), ("degenerate", z_deg)):
+        def one_col(zz=zz):
+            return ops.repeat_cols(zz, M, [x])
+        b2_col[zname] = {
+            "ms": _time_ms(torch, one_col),
+            "plain_ms": _time_ms(torch,
+                                 lambda zz=zz: ops.repeat_cols_plain(zz, M,
+                                                                     [x])),
+            "device_ms": _device_ms(torch, one_col)[0]}
     _emit({"phase": 10, "N": N_MAIN, "nvidia_smi": smi,
-           "timing": "CUDA events, median of 25 batches of 10 calls",
+           "timing": "CUDA events, median of 25 batches of 10 calls; "
+                     "device_ms: torch.profiler, 20 calls",
            "forms": "B2 and B4 ancestors only; B4 on unsorted uniforms",
-           "repeat_by_z_one_f32_column": {"ms": b2_col_ms,
-                                          "plain_ms": b2_col_plain_ms},
+           "repeat_by_z_one_f32_column": b2_col,
            "bound": "max(bytes / 3.35 TB/s, operations / 67 TOP/s)"})
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -25,6 +25,7 @@ from particles_tpu_torch.ops.merge_rank_kernel import (  # noqa: F401
 )
 from particles_tpu_torch.ops.repeat_kernel import (  # noqa: F401
     MAX_PAYLOADS,
+    MERGE_TILE,
     ancestors_by_su,
     ancestors_by_z,
     repeat_by_z,
@@ -36,6 +37,7 @@ from particles_tpu_torch.ops.repeat_kernel import (  # noqa: F401
 )
 from particles_tpu_torch.ops.z_kernel import (  # noqa: F401
     normalised_cumsum_exact,
+    normalised_cumsum_geometry,
     normalised_cumsum_plain,
     systematic_z_fused,
     systematic_z_plain,

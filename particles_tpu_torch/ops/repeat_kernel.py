@@ -19,13 +19,16 @@ su-move is::
 with ``A`` clipped to N - 1.
 
 On this card both kernels (``csrc/repeat_kernel.cu``) are bound by bytes.
-One thread per output binary-searches z or cs for ``A_j`` and copies row
-``A_j`` of every payload as raw bits, so payloads of any dtype with 1-,
-2-, 4- or 8-byte elements, (N,) or (N, d, ...), come back exact; up to
-``MAX_PAYLOADS`` of them share one launch, and the ancestor vector ``A``
-(int64) can ride the same launch.  There is no visit plan, no f32 round
-trip, no sort around unsorted queries and no ``M % N`` gate: those
-answered TPU limits.
+The z-move walks the merge of z with 0..M-1 (ties put z first): each
+block owns an equal slice of that merge, so one particle with all the
+offspring or long runs of childless ones cost the same, and z is read
+once.  The su-move runs one thread per output, which binary-searches cs
+for ``su_j``.  Both copy row ``A_j`` of every payload as raw bits, so
+payloads of any dtype with 1-, 2-, 4- or 8-byte elements, (N,) or (N, d,
+...), come back exact; up to ``MAX_PAYLOADS`` of them share one launch,
+and the ancestor vector ``A`` (int64) can ride the same launch.  There is
+no visit plan, no f32 round trip, no sort around unsorted queries and no
+``M % N`` gate: those answered TPU limits.
 """
 
 from __future__ import annotations
@@ -35,12 +38,14 @@ import ctypes
 import torch
 
 from particles_tpu_torch import _build
+from particles_tpu_torch.ops._launch import on_device
 
-__all__ = ["MAX_PAYLOADS", "repeat_cols", "repeat_cols_plain",
-           "repeat_by_z", "serve_by_z", "ancestors_by_z", "repeat_cols_su",
-           "repeat_cols_su_plain", "ancestors_by_su"]
+__all__ = ["MAX_PAYLOADS", "MERGE_TILE", "repeat_cols",
+           "repeat_cols_plain", "repeat_by_z", "serve_by_z", "ancestors_by_z",
+           "repeat_cols_su", "repeat_cols_su_plain", "ancestors_by_su"]
 
 MAX_PAYLOADS = 8   # payloads per launch; kMaxPayloads in the CUDA source
+MERGE_TILE = 4096  # items of the merge a block of the z-move owns; kMergeTile
 
 _lib = None
 
@@ -51,21 +56,23 @@ def _kernels():
         lib = _build.load("repeat_kernel")
         lib.pt_repeat_max_payloads.argtypes = []
         lib.pt_repeat_max_payloads.restype = ctypes.c_int
+        lib.pt_repeat_merge_tile.argtypes = []
+        lib.pt_repeat_merge_tile.restype = ctypes.c_int
         lib.pt_repeat_by_z.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]
         lib.pt_repeat_by_z.restype = ctypes.c_int
         lib.pt_repeat_by_su.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.pt_repeat_by_su.restype = ctypes.c_int
-        if lib.pt_repeat_max_payloads() != MAX_PAYLOADS:
+        if (lib.pt_repeat_max_payloads() != MAX_PAYLOADS
+                or lib.pt_repeat_merge_tile() != MERGE_TILE):
             raise RuntimeError("repeat_kernel.cu and repeat_kernel.py "
-                               "disagree on the payloads per launch")
+                               "disagree on the payloads per launch or the "
+                               "merge tile")
         _lib = lib
     return _lib
 
@@ -93,8 +100,10 @@ def _check_payloads(cols, N, device, what):
 def _check(z, M, cols):
     if not isinstance(z, torch.Tensor) or z.dtype != torch.int32:
         raise TypeError("repeat_by_z: z must be an int32 tensor")
-    if z.ndim != 1 or z.shape[0] < 1 or not z.is_contiguous():
-        raise ValueError("repeat_by_z: z must be contiguous (N,) with N >= 1")
+    if (z.ndim != 1 or not 1 <= z.shape[0] < 2**31
+            or not z.is_contiguous()):
+        raise ValueError("repeat_by_z: z must be contiguous (N,) with "
+                         "1 <= N < 2^31")
     _check_M(M, "repeat_by_z")
     _check_payloads(cols, z.shape[0], z.device, "repeat_by_z")
 
@@ -119,30 +128,28 @@ def _check_su(su, cs, M, cols):
 def _launch_chunks(launch, N, M, cols, want_anc, device):
     """Serve ``cols`` in launches of up to ``MAX_PAYLOADS`` payloads, ``A``
     riding the first one (with no payload, one ancestors-only launch).
-    ``launch(P, xs, ys, widths, esizes, anc_ptr, stream)`` starts one
-    kernel and returns its CUDA error code.  Returns ``(served, A,
-    launches)``."""
+    ``launch(P, desc, anc_ptr, stream)`` starts one kernel and returns its
+    CUDA error code; ``desc`` is the address of ``4 P`` int64: the payloads'
+    pointers, their outputs' pointers, row widths and element sizes.
+    Returns ``(served, A, launches)``."""
     served, A, launches = [], None, 0
     for s in range(0, max(len(cols), 1), MAX_PAYLOADS):
         chunk = cols[s:s + MAX_PAYLOADS]
         anc_here = want_anc and s == 0
         if not chunk and not anc_here:
             break
-        ys = [torch.empty((M,) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=x.device) for x in chunk]
+        ys = [torch.empty((M,) + x.shape[1:], dtype=x.dtype, device=device)
+              for x in chunk]
         a = (torch.empty(M, dtype=torch.int64, device=device)
              if anc_here else None)
         P = len(chunk)
-        xs_arr = (ctypes.c_void_p * max(P, 1))(*[x.data_ptr() for x in chunk])
-        ys_arr = (ctypes.c_void_p * max(P, 1))(*[y.data_ptr() for y in ys])
-        w_arr = (ctypes.c_longlong * max(P, 1))(
-            *[x.numel() // N for x in chunk])
-        e_arr = (ctypes.c_int * max(P, 1))(*[x.element_size() for x in chunk])
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = launch(P, ctypes.addressof(xs_arr), ctypes.addressof(ys_arr),
-                         ctypes.addressof(w_arr), ctypes.addressof(e_arr),
-                         a.data_ptr() if a is not None else None, stream)
+        desc = (ctypes.c_longlong * max(4 * P, 1))(
+            *[x.data_ptr() for x in chunk], *[y.data_ptr() for y in ys],
+            *[x.numel() // N for x in chunk],
+            *[x.element_size() for x in chunk])
+        anc = a.data_ptr() if a is not None else None
+        err = on_device(device, lambda stream: launch(
+            P, ctypes.addressof(desc), anc, stream))
         if err != 0:
             raise RuntimeError(f"resampling move kernel launch failed: CUDA "
                                f"error {err}")
@@ -179,9 +186,8 @@ def repeat_cols(z, M, cols, want_anc=False):
     lib = _kernels()
     N = z.shape[0]
 
-    def launch(P, xs, ys, widths, esizes, anc, stream):
-        return lib.pt_repeat_by_z(z.data_ptr(), N, M, P, xs, ys, widths,
-                                  esizes, anc, stream)
+    def launch(P, desc, anc, stream):
+        return lib.pt_repeat_by_z(z.data_ptr(), N, M, P, desc, anc, stream)
 
     served, A, n = _launch_chunks(launch, N, M, cols, want_anc, z.device)
     repeat_cols.launches += n
@@ -232,9 +238,9 @@ def repeat_cols_su(su, cs, M, cols, want_anc=False):
     lib = _kernels()
     N = cs.shape[0]
 
-    def launch(P, xs, ys, widths, esizes, anc, stream):
-        return lib.pt_repeat_by_su(su.data_ptr(), M, cs.data_ptr(), N, P, xs,
-                                   ys, widths, esizes, anc, stream)
+    def launch(P, desc, anc, stream):
+        return lib.pt_repeat_by_su(su.data_ptr(), M, cs.data_ptr(), N, P,
+                                   desc, anc, stream)
 
     served, A, n = _launch_chunks(launch, N, M, cols, want_anc, cs.device)
     repeat_cols_su.launches += n

@@ -23,10 +23,14 @@ within ``N * 2^-31 + 1e-6`` of the float64 CDF, with ``|cs[-1] - 1| <
 1e-6``.  Every stage after the integer cumsum is monotone, so z and cs
 are nondecreasing by construction, for any N >= 1.
 
-On this card the kernels (``csrc/z_kernel.cu``) are bound by bytes: each
-reads W three times and writes its output, and at N = 2^20 the W re-reads
-come from L2.  The design, and how it differs from the TPU tiling, is in
-the source's header.
+On this card the kernels (``csrc/z_kernel.cu``) are bound by bytes, 8 a
+particle.  B1 is five launches that read W three times.  B3 is one
+persistent cooperative launch: each block keeps its chunk of W in shared
+memory across two grid-wide barriers (S, then the block sums of q), so W
+is read once and cs written once up to about 6.5M particles on an H100
+(:func:`normalised_cumsum_geometry`); above that a block reads its chunk
+again.  A refused cooperative launch raises.  The design, and how it
+differs from the TPU tiling, is in the source's header.
 """
 
 from __future__ import annotations
@@ -36,11 +40,16 @@ import ctypes
 import torch
 
 from particles_tpu_torch import _build
+from particles_tpu_torch.ops._launch import on_device
 
 __all__ = ["systematic_z_fused", "systematic_z_plain",
-           "normalised_cumsum_exact", "normalised_cumsum_plain"]
+           "normalised_cumsum_exact", "normalised_cumsum_plain",
+           "normalised_cumsum_geometry"]
 
 _SCALE = float(1 << 30)   # fixed-point grid
+# 8-byte words of scratch after B3's output for the kernel's partials (two
+# a block): a launch has at most 2048 blocks (an H100 takes 264)
+_PARTIAL_WORDS = 4096
 
 _lib = None
 
@@ -56,10 +65,12 @@ def _kernels():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         lib.pt_systematic_z.restype = ctypes.c_int
+        lib.pt_cs_geometry.argtypes = [
+            ctypes.c_longlong] + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.pt_cs_geometry.restype = ctypes.c_int
         lib.pt_normalised_cumsum.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
         lib.pt_normalised_cumsum.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -155,34 +166,61 @@ def systematic_z_fused(W, u, M):
 systematic_z_fused.launches = 0   # kernel launches, for tracing the path
 
 
+def normalised_cumsum_geometry(device=None):
+    """B3's launch geometry on a CUDA device (default: the current one):
+    ``(tile, cache_tiles, max_grid)``.  A launch over N particles has
+    ``G = ceil(N / chunk)`` blocks of ``chunk = tile * ceil(ceil(N /
+    max_grid) / tile)`` particles each, kept in shared memory when
+    ``chunk <= cache_tiles * tile``."""
+    lib = _kernels()
+    out = [ctypes.c_int() for _ in range(3)]
+
+    def query(stream):
+        return lib.pt_cs_geometry(_PARTIAL_WORDS,
+                                  *[ctypes.byref(v) for v in out])
+
+    device = torch.device("cuda", torch.cuda.current_device()
+                          if device is None else torch.device(device).index)
+    err = on_device(device, query)
+    if err != 0:
+        raise RuntimeError(f"normalised_cumsum: no cooperative launch on "
+                           f"this device: CUDA error {err}")
+    return tuple(v.value for v in out)
+
+
 def normalised_cumsum_exact(W):
     """Monotone normalised cumulative weights of ``W`` ((N,) float32,
     >= 0): (N,) float32, nondecreasing, ``cs[-1]`` within 1e-6 of 1 (callers
     that need an exact top pin it themselves).
 
     A CPU tensor goes to :func:`normalised_cumsum_plain`; a CUDA tensor to
-    the kernel, which raises if it cannot build or launch.
+    the kernel, one cooperative launch, which raises if it cannot build or
+    launch.  There ``cs`` is a view of the start of one allocation whose
+    tail held the kernel's partials.
     """
     _check_weights(W, "normalised_cumsum")
-    if W.device.type == "cpu":
+    dev = W.device
+    if dev.type == "cpu":
         return normalised_cumsum_plain(W)
-    if W.device.type != "cuda":
-        raise ValueError(f"normalised_cumsum: no kernel for device "
-                         f"{W.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"normalised_cumsum: no kernel for device {dev}")
     lib = _kernels()
     N = W.shape[0]
-    cs = torch.empty(N, dtype=torch.float32, device=W.device)
-    part, bq, scal = _scratch(N, W.device)
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = lib.pt_normalised_cumsum(W.data_ptr(), N, cs.data_ptr(),
-                                       part.data_ptr(), bq.data_ptr(),
-                                       scal.data_ptr(), stream)
+    head = N + N % 2                 # the partials start 8-byte aligned
+    buf = torch.empty(head + 2 * _PARTIAL_WORDS, dtype=torch.float32,
+                      device=dev)
+    part = buf.data_ptr() + 4 * head
+
+    def launch(stream):
+        return lib.pt_normalised_cumsum(W.data_ptr(), N, buf.data_ptr(),
+                                        part, _PARTIAL_WORDS, stream)
+
+    err = on_device(dev, launch)
     if err != 0:
         raise RuntimeError(f"normalised_cumsum kernel launch failed: CUDA "
                            f"error {err}")
     normalised_cumsum_exact.launches += 1
-    return cs
+    return buf[:N]
 
 
 normalised_cumsum_exact.launches = 0   # kernel launches, for tracing the path

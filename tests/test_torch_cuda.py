@@ -16,6 +16,7 @@ import torch
 from particles_tpu_torch import kalman, ops
 from particles_tpu_torch import state_space_models as ssms
 from particles_tpu_torch.core import SMC, multiSMC
+from test_torch_kernel_models import B2_KINDS, B3_KINDS, _counts, _weights
 
 pytestmark = pytest.mark.cuda
 
@@ -27,7 +28,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _weights(N, alpha, seed):
+def _weights_dirichlet(N, alpha=1.0, seed=0):
     g = np.random.default_rng(seed).standard_gamma(alpha, N)
     return (g / g.sum()).astype(np.float32)
 
@@ -37,7 +38,7 @@ def _weights(N, alpha, seed):
 def test_systematic_z_kernel_matches_plain(dev, N, alpha):
     """|dz| <= 1: the kernel and the plain version sum S in another
     order."""
-    W = torch.from_numpy(_weights(N, alpha, N)).to(dev)
+    W = torch.from_numpy(_weights_dirichlet(N, alpha, N)).to(dev)
     for u in (0.0, 0.37, 0.999):
         ut = torch.tensor(u, dtype=torch.float32, device=dev)
         before = ops.systematic_z_fused.launches
@@ -53,7 +54,7 @@ def test_systematic_z_kernel_matches_plain(dev, N, alpha):
 @pytest.mark.parametrize("N,M", [(1, 1), (1000, 1000), (65539, 65539),
                                  (1000, 377)])
 def test_repeat_kernel_matches_plain(dev, N, M):
-    W = torch.from_numpy(_weights(N, 0.3, N + 1)).to(dev)
+    W = torch.from_numpy(_weights_dirichlet(N, 0.3, N + 1)).to(dev)
     z = ops.systematic_z_fused(W, 0.5, M)
     cols = [torch.randn(N, device=dev),
             torch.randint(2 ** 24, 2 ** 31 - 1, (N,), device=dev,
@@ -70,6 +71,32 @@ def test_repeat_kernel_matches_plain(dev, N, M):
     for y, yp in zip(served, ref, strict=True):
         assert y.dtype == yp.dtype and torch.equal(y, yp)
     assert torch.equal(ops.ancestors_by_z(z, M), A_ref)
+
+
+@pytest.mark.parametrize("kind", B2_KINDS)
+def test_repeat_kernel_strained_counts(dev, kind):
+    """Exact on the offspring counts that strain the merge path (the CPU
+    models' cases at the card's block of MERGE_TILE items: N and M not
+    multiples of it), with every payload dtype and width."""
+    rng = np.random.default_rng(len(kind))
+    counts, M = _counts(kind, ops.MERGE_TILE, rng)
+    N = len(counts)
+    z = torch.from_numpy(np.cumsum(counts).astype(np.int32)).to(dev)
+    cols = [torch.randn(N, device=dev),
+            torch.randn(N, 2, device=dev, dtype=torch.float64),
+            torch.randint(2 ** 24, 2 ** 31 - 1, (N,), device=dev,
+                          dtype=torch.int32),
+            torch.randint(-2 ** 62, 2 ** 62, (N,), device=dev,
+                          dtype=torch.int64),
+            torch.randint(-128, 127, (N,), device=dev, dtype=torch.int8),
+            torch.randn(N, 3, device=dev).to(torch.float16)]
+    served, A = ops.repeat_cols(z, M, cols, want_anc=True)
+    ref, A_ref = ops.repeat_cols_plain(z, M, cols, want_anc=True)
+    torch.cuda.synchronize()
+    assert torch.equal(A, A_ref) and torch.equal(ops.ancestors_by_z(z, M),
+                                                 A_ref)
+    for y, yp in zip(served, ref, strict=True):
+        assert y.dtype == yp.dtype and torch.equal(y, yp)
 
 
 def test_wrappers_check_before_launching(dev):
@@ -92,7 +119,7 @@ def test_wrappers_check_before_launching(dev):
 def test_normalised_cumsum_kernel_matches_plain(dev, N, alpha):
     """Monotone, top within 1e-6 of 1, and within N 2^-31 + 1e-6 of the
     plain version (the sum S is taken in another order)."""
-    W = torch.from_numpy(_weights(N, alpha, N + 2)).to(dev)
+    W = torch.from_numpy(_weights_dirichlet(N, alpha, N + 2)).to(dev)
     before = ops.normalised_cumsum_exact.launches
     cs = ops.normalised_cumsum_exact(W)
     assert ops.normalised_cumsum_exact.launches == before + 1
@@ -101,6 +128,62 @@ def test_normalised_cumsum_kernel_matches_plain(dev, N, alpha):
     assert cs.dtype == torch.float32 and cs.shape == (N,)
     assert float((cs - cp).abs().max()) < N * 2**-31 + 1e-6
     assert bool((cs[1:] >= cs[:-1]).all()) and abs(float(cs[-1]) - 1) < 1e-6
+
+
+def _check_cumsum(W_np, dev):
+    """Monotone, top within 1e-6 of 1, and within N 2^-31 + 1e-6 of the
+    plain version and of float64."""
+    N = len(W_np)
+    W = torch.from_numpy(W_np).to(dev)
+    cs = ops.normalised_cumsum_exact(W)
+    cp = ops.normalised_cumsum_plain(W)
+    torch.cuda.synchronize()
+    W64 = W_np.astype(np.float64)
+    oracle = torch.from_numpy(np.cumsum(W64) / W64.sum())
+    tol = N * 2 ** -31 + 1e-6
+    assert float((cs - cp).abs().max()) < tol
+    assert float((cs.cpu().double() - oracle).abs().max()) < tol
+    assert bool((cs[1:] >= cs[:-1]).all()) and abs(float(cs[-1]) - 1) < 1e-6
+
+
+@pytest.mark.parametrize("kind", B3_KINDS)
+def test_normalised_cumsum_kernel_edges(dev, kind):
+    """The CPU models' cases at the card's geometry: the edges of a tile,
+    of the one-tile chunks and of shared memory, and degenerate weights."""
+    tile, cache_tiles, max_grid = ops.normalised_cumsum_geometry()
+    _check_cumsum(_weights(kind, (max_grid, tile, cache_tiles),
+                           np.random.default_rng(7)), dev)
+
+
+def test_normalised_cumsum_kernel_beyond_shared_memory(dev):
+    """N = 2^24: each block reads its chunk again in passes 2 and 3."""
+    _check_cumsum(_weights_dirichlet(2 ** 24), dev)
+
+
+def test_normalised_cumsum_is_one_cooperative_launch(dev, monkeypatch):
+    """One CUDA kernel a call; a refused launch raises and counts nothing
+    (no fallback to the plain version)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from particles_tpu_torch.ops import z_kernel
+
+    W = torch.from_numpy(_weights_dirichlet(2 ** 20, 1.0, 3)).to(dev)
+    ops.normalised_cumsum_exact(W)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ops.normalised_cumsum_exact(W)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert kernels == 5
+    lib = z_kernel._kernels()
+    monkeypatch.setattr(lib, "pt_normalised_cumsum", lambda *a: 720)
+    before = ops.normalised_cumsum_exact.launches
+    with pytest.raises(RuntimeError, match="error 720"):
+        ops.normalised_cumsum_exact(W)
+    assert ops.normalised_cumsum_exact.launches == before
 
 
 def _cdf(W):
@@ -114,7 +197,7 @@ def _cdf(W):
 def test_repeat_su_kernel_matches_plain(dev, N, k, order):
     """Exact: sorted and unsorted queries, M = k N, several dtypes, the
     fused form with ancestors and the ancestors-only form."""
-    cs = _cdf(torch.from_numpy(_weights(N, 0.3, N + 3)).to(dev))
+    cs = _cdf(torch.from_numpy(_weights_dirichlet(N, 0.3, N + 3)).to(dev))
     u = torch.rand(k * N, device=dev)
     if order == "sorted":
         u = u.sort().values
@@ -141,7 +224,7 @@ def test_repeat_su_kernel_matches_plain(dev, N, k, order):
 def test_merge_rank_kernel_matches_plain(dev, N, L, M):
     """Exact, M != N included, with ties (su holding cs values) and, for
     the kernel, a nondecreasing z on an su one ulp out of order."""
-    cs = _cdf(torch.from_numpy(_weights(N, 0.3, N + 4)).to(dev))
+    cs = _cdf(torch.from_numpy(_weights_dirichlet(N, 0.3, N + 4)).to(dev))
     su = torch.rand(L, device=dev)
     tied = torch.cat([su[: L // 2], cs[torch.randint(0, N, (L - L // 2,),
                                                      device=dev)]])

@@ -1,0 +1,263 @@
+"""Numpy models of how the port's CUDA kernels B2 and B3 cut up their work,
+held against the kernels' plain PyTorch versions on the CPU.
+
+A CUDA kernel cannot run here, so these models repeat, step by step, the
+index arithmetic of ``particles_tpu_torch/csrc/repeat_kernel.cu``
+(``warp_split``, ``k_merge_serve``) and ``csrc/z_kernel.cu``
+(``pt_normalised_cumsum``, ``k_cs_coop``), over tile and grid sizes far
+smaller and larger than the card's, so that an off-by-one in a split, a
+tile edge or a prefix shows up where no card is.  Nothing in the package
+uses them.
+
+B2 is held exactly: the merge path gives ``A_j = #{k: z_k <= j}`` with
+every j served once.  B3 is held bit for bit wherever the model's f32 sum
+S equals the plain version's (everything after S is exact integer or
+IEEE-rounded f32 arithmetic), and always to B3's tolerance: nondecreasing,
+``|cs[-1] - 1| < 1e-6``, within ``N 2^-31 + 1e-6`` of float64.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from particles_tpu_torch import ops
+
+# -- B2: the merge path -------------------------------------------------------
+
+
+def _warp_split(c, d, lo, hi, lanes):
+    """``warp_split``: the first a in [lo, hi) with ``a + c[a] >= d`` (hi if
+    none), ``lanes`` evenly spaced probes a round."""
+    while hi > lo:
+        n = hi - lo
+        step = -(-n // lanes)
+        below = []
+        for lane in range(lanes):
+            pr = lo + min(step * (lane + 1), n) - 1
+            below.append(pr + c[pr] < d)
+        nb = sum(below)
+        assert below == [True] * nb + [False] * (lanes - nb)   # a prefix
+        if nb == lanes:
+            return hi
+        hi = lo + min(step * (nb + 1), n) - 1
+        if nb > 0:
+            lo += step * nb
+    return lo
+
+
+def _merge_path(z, M, threads, items, lanes, extra_blocks=0):
+    """``k_merge_serve``'s ancestors: blocks of ``threads * items`` items of
+    the merge of z with 0..M-1, each thread merging ``items`` of them."""
+    N = len(z)
+    c = np.clip(z.astype(np.int64), 0, M)
+    tile = threads * items
+    total = N + M
+    A = np.full(M, -1, dtype=np.int64)
+    for blk in range(-(-total // tile) + extra_blocks):
+        d0 = min(blk * tile, total)
+        d1 = min(d0 + tile, total)
+        a0 = _warp_split(c, d0, max(0, d0 - M), min(d0, N), lanes)
+        a1 = _warp_split(c, d1, max(0, d1 - M), min(d1, N), lanes)
+        b0 = d0 - a0
+        na, nb = a1 - a0, (d1 - a1) - b0
+        assert 0 <= na <= tile and 0 <= nb <= tile
+        sz = c[a0:a1]
+        sa = np.full(nb, -1, dtype=np.int64)
+        n = na + nb
+        for t in range(threads):
+            dl = min(t * items, n)
+            lo, hi = max(0, dl - nb), min(dl, na)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if sz[mid] <= b0 + (dl - 1 - mid):
+                    lo = mid + 1
+                else:
+                    hi = mid
+            a, b = lo, dl - lo
+            for _ in range(dl, min(dl + items, n)):
+                if a < na and (b >= nb or sz[a] <= b0 + b):
+                    a += 1
+                else:
+                    assert sa[b] == -1
+                    sa[b] = a0 + a
+                    b += 1
+        assert (sa >= 0).all()
+        assert (A[b0:b0 + nb] == -1).all()        # every j served once
+        A[b0:b0 + nb] = np.minimum(sa, N - 1)
+    assert (A >= 0).all()
+    return A
+
+
+def _counts(kind, tile, rng):
+    """Offspring counts (N,) and M for one adversarial case."""
+    N = 3 * tile + 5                       # not a multiple of the tile
+    if kind in ("all_on_first", "all_on_middle", "all_on_last"):
+        k = {"all_on_first": 0, "all_on_middle": N // 2,
+             "all_on_last": N - 1}[kind]
+        counts = np.zeros(N, dtype=np.int64)
+        counts[k] = N
+        return counts, N
+    if kind == "all_ones":
+        return np.ones(N, dtype=np.int64), N
+    if kind == "zero_runs_longer_than_a_block":
+        N = 9 * tile + 3
+        counts = np.zeros(N, dtype=np.int64)
+        burst = np.arange(0, N, 3 * tile + 2)    # 3 tiles of zeros between
+        counts[burst] = rng.multinomial(N, np.full(len(burst),
+                                                   1.0 / len(burst)))
+        return counts, N
+    if kind == "N1_M1":
+        return np.array([1]), 1
+    if kind == "N1_M5":
+        return np.array([5]), 5
+    M = {"M1": 1, "M_half_plus_1": N // 2 + 1, "M_4N": 4 * N,
+         "unaligned": 2 * tile + 7}[kind]
+    return rng.multinomial(M, rng.dirichlet(np.full(N, 0.3))), M
+
+
+B2_KINDS = ["all_on_first", "all_on_middle", "all_on_last", "all_ones",
+            "zero_runs_longer_than_a_block", "N1_M1", "N1_M5", "M1",
+            "M_half_plus_1", "M_4N", "unaligned"]
+# (threads, items, lanes): the card's is (256, 16, 32)
+B2_GEOMETRIES = [(1, 1, 2), (4, 2, 4), (8, 3, 32), (256, 16, 32)]
+
+
+@pytest.mark.parametrize("extra_blocks", [0, 2])
+@pytest.mark.parametrize("geometry", B2_GEOMETRIES)
+@pytest.mark.parametrize("kind", B2_KINDS)
+def test_merge_path_model_matches_plain(kind, geometry, extra_blocks):
+    threads, items, lanes = geometry
+    rng = np.random.default_rng(len(kind) + threads)
+    counts, M = _counts(kind, threads * items, rng)
+    assert counts.sum() == M
+    z = np.cumsum(counts).astype(np.int32)
+    A = _merge_path(z, M, threads, items, lanes, extra_blocks)
+    x = torch.from_numpy(rng.standard_normal((len(z), 2)))
+    (y,), A_plain = ops.repeat_cols_plain(torch.from_numpy(z), M, [x],
+                                          want_anc=True)
+    np.testing.assert_array_equal(A, A_plain.numpy())
+    assert torch.equal(x[torch.from_numpy(A)], y)
+
+
+@pytest.mark.parametrize("lanes", [2, 3, 32])
+def test_warp_split_model_is_the_merge_split(lanes):
+    """Every diagonal d of the merge, on z with values below 0 and above M
+    (the kernel clamps them): the split equals the count of z entries in
+    the first d items of the merge."""
+    rng = np.random.default_rng(lanes)
+    for N, M in [(1, 1), (5, 40), (40, 5), (97, 97)]:
+        z = np.sort(rng.integers(-3, M + 4, N))
+        c = np.clip(z, 0, M)
+        pos = np.arange(N) + c                  # where z_k sits in the merge
+        for d in range(N + M + 1):
+            got = _warp_split(c, d, max(0, d - M), min(d, N), lanes)
+            assert got == int((pos < d).sum()), (N, M, d)
+
+
+# -- B3: one cooperative launch ---------------------------------------------
+
+
+def _cs_geometry(N, max_grid, tile, cache_tiles):
+    """``pt_normalised_cumsum``'s launch: (blocks, chunk, cached)."""
+    per = -(-N // max_grid)
+    chunk = -(-per // tile) * tile
+    return -(-N // chunk), chunk, chunk <= cache_tiles * tile
+
+
+def _chunked_cs(W, max_grid, tile, cache_tiles, threads):
+    """``k_cs_coop``: per-block partials of W (float64) and of q (int64),
+    S in a fixed order, each block's exclusive prefix, and the scan of
+    each tile, ``tile // threads`` consecutive elements a thread."""
+    N = len(W)
+    G, chunk, _ = _cs_geometry(N, max_grid, tile, cache_tiles)
+    assert G <= max_grid and chunk % tile == 0
+    assert (G - 1) * chunk < N <= G * chunk     # every block owns >= 1
+    items = tile // threads
+    blocks = [W[b * chunk:(b + 1) * chunk] for b in range(G)]
+    part_s = [float(np.sum(w.astype(np.float64))) for w in blocks]
+    S = np.float32(sum(part_s))
+    scale = np.float32(2.0 ** 30) / max(S, np.float32(1e-37))
+    part_q = [int(np.rint(w * scale).astype(np.int64).sum()) for w in blocks]
+    Q = sum(part_q)
+    inv = np.float32(1.0) / max(np.float32(Q), np.float32(1.0))
+    cs = np.empty(N, dtype=np.float32)
+    for b, w in enumerate(blocks):
+        carry = sum(part_q[:b])
+        for base in range(0, len(w), tile):
+            q = np.zeros(tile, dtype=np.int64)
+            part = w[base:base + tile]
+            q[:len(part)] = np.rint(part * scale)
+            q = q.reshape(threads, items)
+            mine = q.sum(axis=1)
+            ex = np.cumsum(mine) - mine              # the block scan
+            csq = carry + ex[:, None] + np.cumsum(q, axis=1)
+            carry += int(mine.sum())
+            out = (csq.reshape(-1).astype(np.float32) * inv).astype(
+                np.float32)
+            cs[b * chunk + base:b * chunk + base + len(part)] = \
+                out[:len(part)]
+        assert carry == sum(part_q[:b + 1])
+    return cs, S
+
+
+def _weights(kind, geometry, rng):
+    max_grid, tile, cache_tiles = geometry
+    N = {"N1": 1, "tile_plus_1": tile + 1,
+         "two_tile_chunks": max_grid * tile + 1,
+         "beyond_the_cache": max_grid * cache_tiles * tile + 1}.get(kind, 777)
+    if kind.startswith("one_hot"):
+        W = np.zeros(N, dtype=np.float32)
+        W[{"one_hot_first": 0, "one_hot_middle": N // 2,
+           "one_hot_last": N - 1}[kind]] = 1.0
+        return W
+    if kind == "mostly_zero":
+        W = np.zeros(N, dtype=np.float32)
+        W[rng.choice(N, 5, replace=False)] = rng.random(5)
+        return W
+    g = rng.standard_gamma(0.05 if kind == "dirichlet0.05" else 1.0, N)
+    W = (g / g.sum()).astype(np.float32)
+    if kind == "S_near_the_overflow_edge":
+        # the least S for which 2^30 / S stays a finite f32 is ~3.2e-30
+        W = (W * np.float32(4e-30)).astype(np.float32)
+    return W
+
+
+B3_KINDS = ["N1", "tile_plus_1", "two_tile_chunks", "beyond_the_cache",
+            "one_hot_first", "one_hot_middle", "one_hot_last", "mostly_zero",
+            "S_near_the_overflow_edge", "dirichlet0.05"]
+# (max_grid, tile, cache_tiles, threads): the card's is (264, 4096, 6, 512);
+# a max_grid of 264 with small tiles is a grid larger than the data
+B3_GEOMETRIES = [(1, 4, 1, 2), (3, 8, 2, 4), (5, 32, 3, 8),
+                 (264, 64, 2, 8), (2, 4096, 1, 512)]
+
+
+@pytest.mark.parametrize("geometry", B3_GEOMETRIES)
+@pytest.mark.parametrize("kind", B3_KINDS)
+def test_chunked_cumsum_model_matches_plain(kind, geometry):
+    rng = np.random.default_rng(len(kind) + geometry[1])
+    W = _weights(kind, geometry[:3], rng)
+    N = len(W)
+    cs, S = _chunked_cs(W, *geometry)
+    Wt = torch.from_numpy(W)
+    plain = ops.normalised_cumsum_plain(Wt).numpy()
+    if S == Wt.sum(dtype=torch.float64).to(torch.float32).item():
+        np.testing.assert_array_equal(cs, plain)
+    W64 = W.astype(np.float64)
+    oracle = np.cumsum(W64) / W64.sum()
+    tol = N * 2.0 ** -31 + 1e-6
+    assert np.all(np.diff(cs) >= 0)
+    assert abs(float(cs[-1]) - 1.0) < 1e-6
+    assert np.abs(cs - plain).max() < tol
+    assert np.abs(cs - oracle).max() < tol
+
+
+@pytest.mark.parametrize("N", [1, 4096, 4097, 264 * 4096, 264 * 4096 + 1,
+                               264 * 6 * 4096, 264 * 6 * 4096 + 1, 2 ** 24])
+def test_cumsum_geometry_covers_the_data(N):
+    """The card's geometry (264 blocks of at most 6 cached tiles of 4096):
+    at most max_grid blocks, each owning whole tiles and at least one
+    element; chunks stay cached up to 264 * 6 * 4096 elements."""
+    G, chunk, cached = _cs_geometry(N, 264, 4096, 6)
+    assert 1 <= G <= 264 and chunk % 4096 == 0
+    assert (G - 1) * chunk < N <= G * chunk
+    assert cached == (N <= 264 * 6 * 4096)
