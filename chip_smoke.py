@@ -42,7 +42,12 @@ not 0 and no result line is printed.  It exits with an error at once when
    ``|cs[-1] - 1| < 1e-6``, within N 2^-31 + 1e-6 of both.
 6. Kernel B5 (sorted-merge rank count) against its plain version, exact:
    sorted uniforms, uniforms tied with cs values, L = 2N + 1 and L = N/2 + 1
-   uniforms; and z nondecreasing on uniforms one ulp out of order.
+   uniforms; then, at N = 2^20 - 513 (not a multiple of a block's tile),
+   all weight on one particle (first, middle, last), one block's window of
+   uniforms one past and four times what shared memory holds, residual's
+   tail of 2.0 and L = 1; and on uniforms one ulp out of order, z
+   nondecreasing and each z_i a binary search's answer (``su[z_i - 1] <=
+   cs_i < su[z_i]``).
 7. Kernel B4 (move by the inverse CDF) against its plain version, exact:
    unsorted and sorted uniforms, M = 4N, phase 3's payloads, the fused
    form with ancestors and ancestors alone.
@@ -61,8 +66,9 @@ not 0 and no result line is printed.  It exits with an error at once when
     the same function where there is one, and the bound; each kernel's and
     library call's device time (``device_ms``: the sum of its CUDA
     kernels' time in a ``torch.profiler`` window of 20 calls, per call) and
-    CUDA kernels per call (``launches_per_call``: 1 for B2 and B3); then
-    the kernels line and the result line.
+    CUDA kernels per call (``launches_per_call``: 1 for B2, B3 and B5); B2
+    and B5 also on the degenerate weights the filter gives them; then the
+    kernels line and the result line.
 """
 
 import json
@@ -193,27 +199,34 @@ def _time_ms(torch, fn, batches=25, per_batch=10):
     return float(np.median(samples))
 
 
-def _device_window(torch, fn, calls):
+def _device_window(torch, fn, calls, tries=5):
     """({CUDA kernel: device ms a call}, CUDA kernels a call) of ``fn``,
-    from a ``torch.profiler`` window of ``calls`` calls."""
+    from a ``torch.profiler`` window of ``calls`` calls.  The profiler
+    now and then misses some of a window's kernels, or all of them: a
+    window whose count of kernels is no multiple of ``calls`` is taken
+    again, up to ``tries`` windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by_kernel, n = {}, 0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            name = evt.key[:100]
-            by_kernel[name] = (by_kernel.get(name, 0.0)
-                               + evt.self_device_time_total / 1000.0 / calls)
-            n += evt.count
-    _check(n > 0, "the profiler recorded no CUDA kernel")
-    return by_kernel, n / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel, n = {}, 0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                name = evt.key[:100]
+                by_kernel[name] = (by_kernel.get(name, 0.0)
+                                   + evt.self_device_time_total / 1000.0
+                                   / calls)
+                n += evt.count
+        if n > 0 and n % calls == 0:
+            return by_kernel, n / calls
+    raise AssertionError(f"the profiler recorded {n} CUDA kernels for "
+                         f"{calls} calls, in each of {tries} windows")
 
 
 def _device_ms(torch, fn, calls=20):
@@ -460,8 +473,45 @@ def main():
         z = ops.merge_rank_counts(dip, cs, N)
         _check(bool((z[1:] >= z[:-1]).all()),
                f"B5 N={N} {wkind}: z not nondecreasing on a dip")
+        inf = dip.new_full((1,), float("inf"))
+        below = torch.cat([-inf, dip])[z.long()]         # su[z - 1]
+        above = torch.cat([dip, inf])[z.long()]          # su[z]
+        _check(bool((below <= cs).all() and (cs < above).all()),
+               f"B5 N={N} {wkind}: not a binary search's answer on a dip")
+    # strained cases, N not a multiple of a block's tile
+    N = N_MAIN - 513
+    tile, window = ops.MERGE_RANK_TILE, ops.MERGE_RANK_WINDOW
+    cs = cdfs[(N, "dirichlet1")]
+    su = torch.rand(N, device=dev).sort().values
+    strained = []
+    for k in (0, N // 2, N - 1):
+        W1 = torch.zeros(N, device=dev)
+        W1[k:k + 1].fill_(1.0)
+        strained.append((f"all weight on particle {k}", su,
+                         ops.normalised_cumsum_exact(W1), N))
+    a, b = cs[tile], cs[2 * tile - 1]       # block 1's window: (a, b]
+    for K in (window + 1, 4 * window):
+        mid = torch.minimum(a + (b - a) * torch.arange(
+            1, K + 1, device=dev) / K, b)
+        rest = torch.rand(N, device=dev)
+        rest = rest[(rest <= a) | (rest > b)]
+        strained.append((f"block 1's window of {K} > {window}",
+                         torch.cat([mid, rest]).sort().values, cs, N))
+    tail = su.clone()
+    tail[N // 3:] = 2.0
+    strained.append(("residual's tail of 2.0", tail, cs, N))
+    strained.append(("L=1", torch.rand(1, device=dev), cs, N))
+    for form, s, c, M in strained:
+        z = ops.merge_rank_counts(s, c, M)
+        zp = ops.merge_rank_counts_plain(s, c, M)
+        torch.cuda.synchronize()
+        _check(z.dtype == torch.int32 and torch.equal(z, zp),
+               f"B5 {form} (N={N}): differs from plain")
+        n_cases += 1
     _emit({"phase": 6, "kernel": "merge_rank_counts", "cases": n_cases,
-           "max_abs_err_vs_plain": 0, "tolerance": "exact"})
+           "strained_cases": len(strained), "max_abs_err_vs_plain": 0,
+           "tolerance": "exact; on a dip nondecreasing and a binary "
+                        "search's answer"})
 
     # -- 7. B4 against its plain version, exact ------------------------------
     n_cases = 0
@@ -630,7 +680,7 @@ def main():
         source, replaces, err, path = meta[name]
         ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
         device_ms, per_call = _device_ms(torch, kern)
-        if name in ("normalised_cumsum", "repeat_by_z"):
+        if name in ("normalised_cumsum", "repeat_by_z", "merge_rank_counts"):
             _check(per_call == 1, f"{name}: {per_call} CUDA kernels a call")
         by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         by_ops = 1e3 * nops / OPS_PER_S
@@ -648,8 +698,8 @@ def main():
                                   else _device_ms(torch, lib)[0])})
     # B2 as the main path calls it: one f32 column, on Dirichlet(1) z and
     # on the main path's degenerate weights (one particle takes nearly all)
-    z_deg = ops.systematic_z_fused(torch.from_numpy(
-        _dirichlet_like(rng, "degenerate", N)).to(dev), u, M)
+    W_deg = torch.from_numpy(_dirichlet_like(rng, "degenerate", N)).to(dev)
+    z_deg = ops.systematic_z_fused(W_deg, u, M)
     b2_col = {}
     for zname, zz in (("dirichlet1", z), ("degenerate", z_deg)):
         def one_col(zz=zz):
@@ -660,11 +710,24 @@ def main():
                                  lambda zz=zz: ops.repeat_cols_plain(zz, M,
                                                                      [x])),
             "device_ms": _device_ms(torch, one_col)[0]}
+    # B5 on the degenerate CDF: one block's window is nearly all of su
+    cs_deg = ops.normalised_cumsum_exact(W_deg)
+    b5_deg = {
+        "ms": _time_ms(torch, lambda: ops.merge_rank_counts(su, cs_deg, M)),
+        "plain_ms": _time_ms(
+            torch, lambda: ops.merge_rank_counts_plain(su, cs_deg, M)),
+        "device_ms": _device_ms(
+            torch, lambda: ops.merge_rank_counts(su, cs_deg, M))[0],
+        "library_ms": _time_ms(
+            torch, lambda: torch.searchsorted(su, cs_deg, right=True)),
+        "library_device_ms": _device_ms(
+            torch, lambda: torch.searchsorted(su, cs_deg, right=True))[0]}
     _emit({"phase": 10, "N": N_MAIN, "nvidia_smi": smi,
            "timing": "CUDA events, median of 25 batches of 10 calls; "
                      "device_ms: torch.profiler, 20 calls",
            "forms": "B2 and B4 ancestors only; B4 on unsorted uniforms",
            "repeat_by_z_one_f32_column": b2_col,
+           "merge_rank_counts_degenerate": b5_deg,
            "bound": "max(bytes / 3.35 TB/s, operations / 67 TOP/s)"})
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

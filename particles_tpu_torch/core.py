@@ -84,8 +84,10 @@ class FeynmanKac:
         return rs.wmean_and_var(W, X)
 
     def summary_format(self, smc):
+        """The line ``SMC(verbose=True)`` prints after each step; reading
+        the ESS as a number syncs with the device."""
         return (f"t={smc.t}: resample={smc.rs_flag}, "
-                f"ESS (end of iter)={smc.wgts.ESS}")
+                f"ESS (end of iter)={float(smc.wgts.ESS)}")
 
 
 class StepView(NamedTuple):
@@ -217,6 +219,8 @@ class SMC:
     ``device="cpu"``.  Every draw comes from one ``torch.Generator`` on
     that device, seeded by ``seed`` unless ``generator`` is given.
 
+    ``verbose=True`` prints ``str(self)`` (``fk.summary_format``) after
+    each step, which reads the ESS on the host: one more sync a step.
     ``qmc`` and ``store_history`` exist in the JAX package and are not
     ported yet: asking for them raises ``NotImplementedError`` (ROADMAP
     queue A).
@@ -224,7 +228,7 @@ class SMC:
 
     def __init__(self, fk=None, N=100, seed=0, generator=None, device=None,
                  resampling="systematic", ESSrmin=0.5, collect=None,
-                 qmc=False, store_history=False):
+                 qmc=False, store_history=False, verbose=False):
         if qmc:
             raise NotImplementedError(
                 "SQMC is not ported to particles_tpu_torch yet (ROADMAP A.8)")
@@ -260,6 +264,7 @@ class SMC:
         self.N = N
         self.resampling = resampling
         self.ESSrmin = ESSrmin
+        self.verbose = verbose
         self.summaries = (None if collect == "off"
                           else collectors.Summaries(collect))
 
@@ -306,6 +311,8 @@ class SMC:
         self._install_view(view, carry)
         if self.summaries is not None:
             self.summaries.append_step(outs)
+        if self.verbose:
+            print(self)
         self.t += 1
 
     def next(self):
@@ -352,7 +359,7 @@ def multiSMC(fk=None, N=100, qmc=False, resampling="systematic", ESSrmin=0.5,
     with the cartesian product of every keyword argument given as a list
     (``resampling=['multinomial', 'systematic']``) or as a dict of name ->
     value (``fk={'boot': fk_b, 'other': fk_o}``).  Any other :class:`SMC`
-    option (``device``, ...) passes through.
+    option (``device``, ``verbose``, ...) passes through.
 
     Returns a list of dicts holding the varying options (a dict's names),
     ``'run'`` and ``'output'``: an :class:`SMCResult`, or what

@@ -20,6 +20,8 @@ from particles_tpu_torch.ops.cummax_kernel import (  # noqa: F401
     running_max_plain,
 )
 from particles_tpu_torch.ops.merge_rank_kernel import (  # noqa: F401
+    MERGE_RANK_TILE,
+    MERGE_RANK_WINDOW,
     merge_rank_counts,
     merge_rank_counts_plain,
 )

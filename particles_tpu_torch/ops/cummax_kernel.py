@@ -17,18 +17,21 @@ import ctypes
 import torch
 
 from particles_tpu_torch import _build
+from particles_tpu_torch.ops._launch import on_device
 
 __all__ = ["running_max", "running_max_plain"]
 
 _lib = None
+_tile = None   # elements per streaming block, read once at load
 
 
 def _kernels():
-    global _lib
+    global _lib, _tile
     if _lib is None:
         lib = _build.load("cummax_kernel")
         lib.pt_cummax_tile.argtypes = []
         lib.pt_cummax_tile.restype = ctypes.c_int
+        _tile = lib.pt_cummax_tile()
         lib.pt_running_max.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]
@@ -46,7 +49,8 @@ def running_max(z):
     """Inclusive running maximum of ``z`` ((N,) int32): (N,) int32.
 
     A CPU tensor goes to :func:`running_max_plain`; a CUDA tensor to the
-    kernel, which raises if it cannot build or launch.
+    kernel, which raises if it cannot build or launch.  There ``y`` is a
+    view of the start of one allocation whose tail held the block maxima.
     """
     if not isinstance(z, torch.Tensor) or z.dtype != torch.int32:
         raise TypeError("running_max: z must be an int32 tensor")
@@ -58,18 +62,14 @@ def running_max(z):
         raise ValueError(f"running_max: no kernel for device {z.device}")
     lib = _kernels()
     N = z.shape[0]
-    y = torch.empty(N, dtype=torch.int32, device=z.device)
-    bmax = torch.empty(-(-N // lib.pt_cummax_tile()), dtype=torch.int32,
-                       device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.pt_running_max(z.data_ptr(), N, y.data_ptr(),
-                                 bmax.data_ptr(), stream)
+    buf = torch.empty(N + -(-N // _tile), dtype=torch.int32, device=z.device)
+    err = on_device(z.device, lambda stream: lib.pt_running_max(
+        z.data_ptr(), N, buf.data_ptr(), buf.data_ptr() + 4 * N, stream))
     if err != 0:
         raise RuntimeError(f"running_max kernel launch failed: CUDA error "
                            f"{err}")
     running_max.launches += 1
-    return y
+    return buf[:N]
 
 
 running_max.launches = 0   # kernel launches, for tracing the path

@@ -7,13 +7,25 @@ nondecreasing)::
 
     z_i = min(#{j : su_j <= cs_i}, M)      (int32)
 
-the counts' cumsum of every inverse-CDF resampling scheme, exact (float
-compares), for any L and N.  ``z`` is nondecreasing whenever ``cs`` is,
-even where a float cumsum left ``su`` an ulp out of order: a binary
-search's result is monotone in its key whatever the array holds.
+the counts' cumsum of every inverse-CDF resampling scheme.  The kernel
+keeps three contracts, for any L, N >= 1 and 0 <= M < 2^31:
 
-On this card the kernel (``csrc/merge_rank_kernel.cu``) is bound by bytes:
-one thread per ``cs_i`` binary-searches ``su``, which stays in L2.
+1. on sorted ``su`` it equals :func:`merge_rank_counts_plain`
+   (``searchsorted(su, cs, right=True)`` clamped to M) exactly;
+2. ``z`` is nondecreasing whenever ``cs`` is, on any ``su``, even where a
+   float cumsum left it an ulp out of order (each z_i is then a binary
+   search's answer: ``su[z_i - 1] <= cs_i < su[z_i]`` where those exist,
+   before the clamp to M);
+3. every output is written exactly once, whatever ``su`` holds.
+
+On this card the kernel (``csrc/merge_rank_kernel.cu``) is bound by bytes.
+A block owns ``MERGE_RANK_TILE`` consecutive ``cs``; two warps find the
+block's window of ``su`` by 32-probe searches of all of it, the block
+copies the window into shared memory (up to ``MERGE_RANK_WINDOW`` floats;
+a larger one is searched in place) and each thread counts its first key
+in the window and its other keys between that count and the next
+thread's.  The design, and why it keeps the contracts, is in the
+source's header.
 """
 
 from __future__ import annotations
@@ -23,8 +35,13 @@ import ctypes
 import torch
 
 from particles_tpu_torch import _build
+from particles_tpu_torch.ops._launch import on_device
 
-__all__ = ["merge_rank_counts", "merge_rank_counts_plain"]
+__all__ = ["MERGE_RANK_TILE", "MERGE_RANK_WINDOW", "merge_rank_counts",
+           "merge_rank_counts_plain"]
+
+MERGE_RANK_TILE = 2048     # cs a block owns; kThreads * kItems in the source
+MERGE_RANK_WINDOW = 8192   # su a block keeps in shared memory; kWindow
 
 _lib = None
 
@@ -33,11 +50,18 @@ def _kernels():
     global _lib
     if _lib is None:
         lib = _build.load("merge_rank_kernel")
+        for name in ("pt_merge_rank_tile", "pt_merge_rank_window"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         lib.pt_merge_rank_counts.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_void_p]
         lib.pt_merge_rank_counts.restype = ctypes.c_int
+        if (lib.pt_merge_rank_tile() != MERGE_RANK_TILE
+                or lib.pt_merge_rank_window() != MERGE_RANK_WINDOW):
+            raise RuntimeError("merge_rank_kernel.cu and merge_rank_kernel.py "
+                               "disagree on the tile or the window")
         _lib = lib
     return _lib
 
@@ -68,22 +92,20 @@ def merge_rank_counts(su, cs, M):
     """``z_i = #{j: su_j <= cs_i}`` clipped to [0, M]: (N,) int32.
 
     A CPU tensor goes to :func:`merge_rank_counts_plain`; a CUDA tensor to
-    the kernel, which raises if it cannot build or launch.
+    the kernel, one launch, which raises if it cannot build or launch.
     """
     _check(su, cs, M)
-    if cs.device.type == "cpu":
+    dev = cs.device
+    if dev.type == "cpu":
         return merge_rank_counts_plain(su, cs, M)
-    if cs.device.type != "cuda":
-        raise ValueError(f"merge_rank_counts: no kernel for device "
-                         f"{cs.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"merge_rank_counts: no kernel for device {dev}")
     lib = _kernels()
     N = cs.shape[0]
-    z = torch.empty(N, dtype=torch.int32, device=cs.device)
-    with torch.cuda.device(cs.device):
-        stream = torch.cuda.current_stream(cs.device).cuda_stream
-        err = lib.pt_merge_rank_counts(su.data_ptr(), su.shape[0],
-                                       cs.data_ptr(), N, M, z.data_ptr(),
-                                       stream)
+    z = torch.empty(N, dtype=torch.int32, device=dev)
+    err = on_device(dev, lambda stream: lib.pt_merge_rank_counts(
+        su.data_ptr(), su.shape[0], cs.data_ptr(), N, M, z.data_ptr(),
+        stream))
     if err != 0:
         raise RuntimeError(f"merge_rank_counts kernel launch failed: CUDA "
                            f"error {err}")

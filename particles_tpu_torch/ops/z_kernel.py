@@ -52,14 +52,16 @@ _SCALE = float(1 << 30)   # fixed-point grid
 _PARTIAL_WORDS = 4096
 
 _lib = None
+_z_tile = None   # B1's elements per streaming block, read once at load
 
 
 def _kernels():
-    global _lib
+    global _lib, _z_tile
     if _lib is None:
         lib = _build.load("z_kernel")
         lib.pt_z_tile.argtypes = []
         lib.pt_z_tile.restype = ctypes.c_int
+        _z_tile = lib.pt_z_tile()
         lib.pt_systematic_z.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -126,21 +128,15 @@ def normalised_cumsum_plain(W):
     return csq.to(torch.float32) * inv
 
 
-def _scratch(N, device):
-    nb = -(-N // _kernels().pt_z_tile())
-    return (torch.empty(nb, dtype=torch.float64, device=device),
-            torch.empty(nb, dtype=torch.int64, device=device),
-            torch.empty(2, dtype=torch.float32, device=device))
-
-
 def systematic_z_fused(W, u, M):
     """Systematic z-form of ``W`` ((N,) float32, >= 0) with uniform ``u``:
     (N,) int32, nondecreasing, ``z[-1] == M``.
 
     A CPU tensor goes to :func:`systematic_z_plain`; a CUDA tensor to the
-    kernel, which raises if it cannot build or launch.  ``u`` may be a
-    Python float or a one-element tensor; a device tensor is read by the
-    kernel, with no host sync.
+    kernel, which raises if it cannot build or launch.  There ``z`` is a
+    view of the start of one allocation whose tail held the kernel's
+    scratch.  ``u`` may be a Python float or a one-element tensor; a device
+    tensor is read by the kernel, with no host sync.
     """
     u = _check(W, u, M)
     if W.device.type == "cpu":
@@ -149,18 +145,24 @@ def systematic_z_fused(W, u, M):
         raise ValueError(f"systematic_z: no kernel for device {W.device}")
     lib = _kernels()
     N = W.shape[0]
-    z = torch.empty(N, dtype=torch.int32, device=W.device)
-    part, bq, scal = _scratch(N, W.device)
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = lib.pt_systematic_z(W.data_ptr(), N, M, u.data_ptr(),
-                                  z.data_ptr(), part.data_ptr(),
-                                  bq.data_ptr(), scal.data_ptr(), stream)
+    nb = -(-N // _z_tile)
+    head = N + N % 2                 # the scratch starts 8-byte aligned
+    # z, then the block sums of W (f64) and of q (int64), then two f32
+    buf = torch.empty(head + 4 * nb + 2, dtype=torch.int32, device=W.device)
+    part = buf.data_ptr() + 4 * head
+    bq = part + 8 * nb
+    scal = bq + 8 * nb
+
+    def launch(stream):
+        return lib.pt_systematic_z(W.data_ptr(), N, M, u.data_ptr(),
+                                   buf.data_ptr(), part, bq, scal, stream)
+
+    err = on_device(W.device, launch)
     if err != 0:
         raise RuntimeError(f"systematic_z kernel launch failed: CUDA error "
                            f"{err}")
     systematic_z_fused.launches += 1
-    return z
+    return buf[:N]
 
 
 systematic_z_fused.launches = 0   # kernel launches, for tracing the path

@@ -16,7 +16,10 @@ import torch
 from particles_tpu_torch import kalman, ops
 from particles_tpu_torch import state_space_models as ssms
 from particles_tpu_torch.core import SMC, multiSMC
-from test_torch_kernel_models import B2_KINDS, B3_KINDS, _counts, _weights
+from test_torch_kernel_models import (B2_KINDS, B3_KINDS, B5_DIP_KEYS,
+                                      B5_GEOMETRIES, B5_KINDS, _counts,
+                                      _dip_case, _rank_blocks, _rank_case,
+                                      _weights)
 
 pytestmark = pytest.mark.cuda
 
@@ -240,6 +243,61 @@ def test_merge_rank_kernel_matches_plain(dev, N, L, M):
         dip[1::7] = torch.nextafter(dip[0:-1:7], torch.zeros(()).to(dev))
         z = ops.merge_rank_counts(dip, cs, M)
         assert bool((z[1:] >= z[:-1]).all())
+
+
+@pytest.mark.parametrize("kind", B5_KINDS)
+def test_merge_rank_kernel_strained(dev, kind):
+    """Exact on the CPU model's cases at the card's tile and window: all
+    weight on one particle, a block's window at and one past shared
+    memory, residual's 2.0 tail, L = 1, M below L, ties."""
+    su, cs, M = _rank_case(kind, ops.MERGE_RANK_TILE, ops.MERGE_RANK_WINDOW,
+                           np.random.default_rng(len(kind)))
+    su, cs = torch.from_numpy(su).to(dev), torch.from_numpy(cs).to(dev)
+    z = ops.merge_rank_counts(su, cs, M)
+    zp = ops.merge_rank_counts_plain(su, cs, M)
+    torch.cuda.synchronize()
+    assert z.dtype == torch.int32 and torch.equal(z, zp)
+
+
+@pytest.mark.parametrize("keys", B5_DIP_KEYS)
+def test_merge_rank_kernel_on_a_dip(dev, keys):
+    """On uniforms that dip by an ulp the kernel gives its CPU model's
+    answer element for element (nondecreasing, each a binary search's)."""
+    threads, items, window, lanes = B5_GEOMETRIES[-1]   # the card's
+    assert (threads * items, window) == (ops.MERGE_RANK_TILE,
+                                         ops.MERGE_RANK_WINDOW)
+    su, cs = _dip_case(keys, ops.MERGE_RANK_TILE, np.random.default_rng(9))
+    N = len(cs)
+    want, _, _ = _rank_blocks(su, cs, N, threads, items, window, lanes)
+    z = ops.merge_rank_counts(torch.from_numpy(su).to(dev),
+                              torch.from_numpy(cs).to(dev), N)
+    np.testing.assert_array_equal(z.cpu().numpy(), want)
+
+
+def test_trimmed_wrappers_raise_on_a_refused_launch(dev, monkeypatch):
+    """B1, B5 and B6 launch through on_device with one allocation; a
+    refused launch raises and counts nothing (no fallback)."""
+    from particles_tpu_torch.ops import cummax_kernel, merge_rank_kernel
+    from particles_tpu_torch.ops import z_kernel
+
+    W = torch.full((1000,), 1e-3, device=dev)
+    cs = ops.normalised_cumsum_exact(W)
+    zi = torch.arange(1000, device=dev, dtype=torch.int32)
+    calls = [(z_kernel, "pt_systematic_z", ops.systematic_z_fused,
+              lambda: ops.systematic_z_fused(W, 0.5, 1000)),
+             (merge_rank_kernel, "pt_merge_rank_counts", ops.merge_rank_counts,
+              lambda: ops.merge_rank_counts(cs, cs, 1000)),
+             (cummax_kernel, "pt_running_max", ops.running_max,
+              lambda: ops.running_max(zi))]
+    for mod, fn, wrapper, call in calls:
+        call()
+        lib = mod._kernels()
+        monkeypatch.setattr(lib, fn, lambda *a: 720)
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match="error 720"):
+            call()
+        assert wrapper.launches == before
+        monkeypatch.undo()
 
 
 @pytest.mark.parametrize("N", [1, 7, 1000, 1025, 65539])

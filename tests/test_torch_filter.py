@@ -8,6 +8,8 @@ arrays in both packages (exact where the arithmetic is the same, rtol
 filter by statistics over fixed seeds.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -149,6 +151,50 @@ def test_iterator_protocol_and_summaries():
     with_gen = core.SMC(fk=tfk, N=256, generator=g)
     with_gen.run()
     assert float(with_gen.logLt) == float(pf.logLt)
+
+
+# what SMC(verbose=True) prints after each step, in both packages
+VERBOSE_LINE = re.compile(
+    r"t=(\d+): resample=(True|False), ESS \(end of iter\)=(\S+)")
+
+
+@pytest.mark.parametrize("entry", ["SMC", "multiSMC"])
+def test_verbose_prints_one_line_a_step_as_jax_does(entry, capsys):
+    """``verbose=True`` prints ``fk.summary_format`` after each step, one
+    line a step in the JAX package's format: t, the resampling flag, and
+    the ESS as a number (the step's recorded ESS).  ``verbose=False``
+    prints nothing."""
+    T, N = 5, 64
+    jfk, tfk = _models(_simulate(T, 4))
+
+    def lines(run):
+        run()
+        return [VERBOSE_LINE.fullmatch(line)
+                for line in capsys.readouterr().out.splitlines()]
+
+    if entry == "SMC":
+        jax_lines = lines(jcore.SMC(fk=jfk, N=N, verbose=True).run)
+        pf = core.SMC(fk=tfk, N=N, seed=0, verbose=True)
+        port_lines = lines(pf.run)
+        summaries = pf.summaries
+        assert lines(core.SMC(fk=tfk, N=N, seed=0).run) == []
+    else:
+        jax_lines = lines(lambda: jcore.multiSMC(fk=jfk, N=N, nruns=1,
+                                                 verbose=True))
+        runs = []
+        port_lines = lines(lambda: runs.extend(core.multiSMC(
+            fk=tfk, N=N, nruns=1, verbose=True)))
+        summaries = runs[0]["output"].summaries
+        assert lines(lambda: core.multiSMC(fk=tfk, N=N, nruns=1)) == []
+    for got in (jax_lines, port_lines):
+        assert len(got) == T and all(got)
+        assert [int(m[1]) for m in got] == list(range(T))
+        assert got[0][2] == "False"
+        assert all(0.0 < float(m[3]) <= N for m in got)
+    assert ([m[2] == "True" for m in port_lines]
+            == summaries.rs_flags.tolist())
+    assert ([float(m[3]) for m in port_lines]
+            == [float(e) for e in summaries.ESSs])
 
 
 def test_decision_follows_ess_and_logLt_accounting():

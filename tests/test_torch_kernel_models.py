@@ -1,19 +1,23 @@
-"""Numpy models of how the port's CUDA kernels B2 and B3 cut up their work,
-held against the kernels' plain PyTorch versions on the CPU.
+"""Numpy models of how the port's CUDA kernels B2, B3 and B5 cut up their
+work, held against the kernels' plain PyTorch versions on the CPU.
 
 A CUDA kernel cannot run here, so these models repeat, step by step, the
 index arithmetic of ``particles_tpu_torch/csrc/repeat_kernel.cu``
-(``warp_split``, ``k_merge_serve``) and ``csrc/z_kernel.cu``
-(``pt_normalised_cumsum``, ``k_cs_coop``), over tile and grid sizes far
-smaller and larger than the card's, so that an off-by-one in a split, a
-tile edge or a prefix shows up where no card is.  Nothing in the package
-uses them.
+(``warp_split``, ``k_merge_serve``), ``csrc/z_kernel.cu``
+(``pt_normalised_cumsum``, ``k_cs_coop``) and
+``csrc/merge_rank_kernel.cu`` (``warp_upper_bound``, ``window_counts``,
+``k_merge_rank``), over tile and grid sizes far smaller and larger than
+the card's, so that an off-by-one in a split, a tile edge or a prefix
+shows up where no card is.  Nothing in the package uses them.
 
 B2 is held exactly: the merge path gives ``A_j = #{k: z_k <= j}`` with
 every j served once.  B3 is held bit for bit wherever the model's f32 sum
 S equals the plain version's (everything after S is exact integer or
 IEEE-rounded f32 arithmetic), and always to B3's tolerance: nondecreasing,
-``|cs[-1] - 1| < 1e-6``, within ``N 2^-31 + 1e-6`` of float64.
+``|cs[-1] - 1| < 1e-6``, within ``N 2^-31 + 1e-6`` of float64.  B5 is held
+exactly on sorted uniforms, and on uniforms that dip to its other two
+contracts: z nondecreasing, every output written once, each a binary
+search's answer.
 """
 
 import numpy as np
@@ -261,3 +265,215 @@ def test_cumsum_geometry_covers_the_data(N):
     assert 1 <= G <= 264 and chunk % 4096 == 0
     assert (G - 1) * chunk < N <= G * chunk
     assert cached == (N <= 264 * 6 * 4096)
+
+
+# -- B5: block windows of su ------------------------------------------------
+
+
+def _warp_upper_bound(su, c, lanes):
+    """``warp_upper_bound``: #{j: su_j <= c} by rounds of ``lanes`` evenly
+    spaced probes, each round keeping the gap before the first probe above
+    c."""
+    lo, hi = 0, len(su)
+    while hi > lo:
+        n = hi - lo
+        step = -(-n // lanes)
+        above = [not su[lo + min(step * (lane + 1), n) - 1] <= c
+                 for lane in range(lanes)]
+        if not any(above):
+            return hi
+        f = above.index(True)
+        hi = lo + min(step * (f + 1), n) - 1
+        lo += step * f
+    return lo
+
+
+def _window_counts(win, keys):
+    """``window_counts``: #{j: win_j <= key} for every key, by the
+    branch-free binary search (powers of two, largest first)."""
+    w = len(win)
+    cnt = np.zeros(len(keys), dtype=np.int64)
+    step = 1 << (w.bit_length() - 1) if w else 0
+    while step:
+        p = cnt + step
+        ok = p <= w
+        ok[ok] = win[p[ok] - 1] <= keys[ok]
+        cnt[ok] = p[ok]
+        step >>= 1
+    return cnt
+
+
+def _rank_blocks(su, cs, M, threads, items, window, lanes):
+    """``k_merge_rank``: z, and how many blocks searched su in place (a
+    window over ``window``) and the furthest window end."""
+    N = len(cs)
+    tile = threads * items
+    z = np.full(N, -1, dtype=np.int64)
+    written = np.zeros(N, dtype=np.int64)
+    in_place, last_end = 0, 0
+    for i0 in range(0, N, tile):
+        i1 = min(i0 + tile, N)
+        lo = _warp_upper_bound(su, cs[i0], lanes)
+        hi = _warp_upper_bound(su, cs[i1 - 1], lanes)
+        assert 0 <= lo <= hi <= len(su)
+        w = hi - lo
+        win = su[lo:hi]
+        last_end = max(last_end, hi)
+        keys = cs[i0:i1]
+        if w > window:       # in place: the tile's end keys take the ends
+            in_place += 1
+            got = np.where(keys == cs[i0], 0, np.where(
+                keys == cs[i1 - 1], w, _window_counts(win, keys)))
+        else:
+            # each thread's first key in the whole window, its other keys
+            # between that count and the next thread's first key's
+            heads = keys[::items]
+            first = np.concatenate([
+                _window_counts(win, heads),
+                np.full(threads - len(heads), w, dtype=np.int64)])
+            got = np.empty(len(keys), dtype=np.int64)
+            for t in range(len(heads)):
+                r = first[t]
+                top = first[t + 1] if t + 1 < threads else w
+                assert r <= top <= w                # inside the window
+                mine = keys[t * items:(t + 1) * items]
+                got[t * items] = r
+                got[t * items + 1:(t + 1) * items] = r + _window_counts(
+                    win[r:top], mine[1:])
+        written[i0:i1] += 1
+        z[i0:i1] = np.minimum(lo + got, M)
+    assert (written == 1).all()
+    return z, in_place, last_end
+
+
+def _rank_case(kind, tile, window, rng):
+    """(su, cs, M) of one case, ``tile`` and ``window`` the geometry's."""
+    N = max(3 * tile + 5, 65 + tile // 2)   # not a multiple of the tile
+    L, M = N, N
+    cs = np.cumsum(rng.dirichlet(np.ones(N))).astype(np.float32)
+    if kind in ("all_on_first", "all_on_middle", "all_on_last"):
+        k = {"all_on_first": 0, "all_on_middle": N // 2,
+             "all_on_last": N - 1}[kind]
+        cs = (np.arange(N) >= k).astype(np.float32)
+        assert kind == "all_on_first" or k % tile   # the step inside a tile
+    elif kind == "dirichlet0.05":
+        cs = np.cumsum(rng.dirichlet(np.full(N, 0.05))).astype(np.float32)
+    L = {"L_2N_plus_1": 2 * N + 1, "L_half_plus_1": N // 2 + 1,
+         "L1": 1}.get(kind, L)
+    M = {"M_below_L": N // 3, "M0": 0}.get(kind, M)
+    su = np.sort(rng.uniform(size=L)).astype(np.float32)
+    if kind == "ties":
+        su = np.sort(np.concatenate([su[: L // 2],
+                                     rng.choice(cs, L - L // 2)]))
+    elif kind == "residual_tail":                 # draws, then 2.0
+        su[L // 3:] = 2.0
+    elif kind in ("window_at_cap", "window_past_cap"):
+        # block 1's window, su in (cs[tile], cs[2 tile - 1]], holds exactly
+        # `window` uniforms, or one more
+        a, b = cs[tile], cs[2 * tile - 1]
+        k = window + (kind == "window_past_cap")
+        mid = np.linspace(a, b, k + 1)[1:].astype(np.float32)
+        rest = rng.uniform(size=L).astype(np.float32)
+        su = np.sort(np.concatenate([mid, rest[(rest <= a) | (rest > b)]]))
+        assert ((su > a) & (su <= b)).sum() == k
+    return su.astype(np.float32), cs, M
+
+
+B5_KINDS = ["dirichlet1", "dirichlet0.05", "L_2N_plus_1", "L_half_plus_1",
+            "L1", "ties", "M_below_L", "M0", "all_on_first", "all_on_middle",
+            "all_on_last", "residual_tail", "window_at_cap",
+            "window_past_cap"]
+# (threads, items, window, lanes): the card's is (256, 8, 8192, 32)
+B5_GEOMETRIES = [(2, 1, 1, 2), (2, 3, 4, 3), (4, 2, 16, 4), (8, 4, 64, 32),
+                 (256, 8, 8192, 32)]
+
+
+@pytest.mark.parametrize("geometry", B5_GEOMETRIES)
+@pytest.mark.parametrize("kind", B5_KINDS)
+def test_merge_rank_model_matches_plain(kind, geometry):
+    threads, items, window, lanes = geometry
+    tile = threads * items
+    rng = np.random.default_rng(len(kind) + tile)
+    su, cs, M = _rank_case(kind, tile, window, rng)
+    z, in_place, last_end = _rank_blocks(su, cs, M, *geometry)
+    ref = np.minimum(np.searchsorted(su, cs, side="right"), M)
+    np.testing.assert_array_equal(z, ref)
+    plain = ops.merge_rank_counts_plain(torch.from_numpy(su),
+                                        torch.from_numpy(cs), M)
+    np.testing.assert_array_equal(z, plain.numpy())
+    edges = np.searchsorted(su, cs, side="right")
+    ends = np.minimum(np.arange(0, len(cs), tile) + tile, len(cs)) - 1
+    sizes = edges[ends] - edges[::tile]          # each block's window
+    assert in_place == int((sizes > window).sum())
+    if kind in ("window_at_cap", "window_past_cap"):
+        assert sizes[1] == window + (kind == "window_past_cap")
+    if kind in ("all_on_middle", "all_on_last") and len(su) > window:
+        assert in_place == 1                     # the block of the step
+    if kind == "residual_tail":
+        assert last_end <= len(su) // 3          # no window holds the tail
+
+
+def _dipped(rng, L, every):
+    """Sorted uniforms with every ``every``-th one an ulp below the one
+    before it, as a float cumsum can leave them, and the dipped indices."""
+    su = np.sort(rng.uniform(size=L)).astype(np.float32)
+    k = np.arange(1, L, every)
+    su[k] = np.nextafter(su[k - 1], np.float32(0))
+    assert (np.diff(su) < 0).any()
+    return su, k
+
+
+def _dip_case(keys, tile, rng):
+    """(su, cs): N dipped uniforms and N sorted keys: uniform, equal to
+    dipped uniforms, or half and half."""
+    N = max(3 * tile + 5, 61)
+    su, dips = _dipped(rng, N, 7)
+    uni = rng.uniform(size=N).astype(np.float32)
+    on = rng.choice(su[dips], N)
+    cs = np.sort({"uniform": uni, "on_the_dips": on,
+                  "mixed": np.where(rng.random(N) < 0.5, uni, on)}[keys])
+    return su, cs
+
+
+B5_DIP_KEYS = ["uniform", "on_the_dips", "mixed"]
+
+
+@pytest.mark.parametrize("geometry", B5_GEOMETRIES)
+@pytest.mark.parametrize("keys", B5_DIP_KEYS)
+def test_merge_rank_model_on_a_dip(keys, geometry):
+    """On uniforms that dip by an ulp: z nondecreasing, every output
+    written once (asserted in the model), and each z_i a binary search's
+    answer, su[z_i - 1] <= cs_i < su[z_i] where those exist.  Keys equal
+    to a dipped uniform are where a round's probes above the key are not a
+    prefix of its lanes."""
+    threads, items, window, lanes = geometry
+    su, cs = _dip_case(keys, threads * items, np.random.default_rng(
+        threads * items + len(keys)))
+    N = len(cs)
+    z, _, _ = _rank_blocks(su, cs, N, *geometry)
+    assert (np.diff(z) >= 0).all()
+    below = np.concatenate([[-np.inf], su])[z]          # su[z - 1]
+    above = np.concatenate([su, [np.inf]])[z]           # su[z]
+    assert (below <= cs).all() and (cs < above).all()
+
+
+@pytest.mark.parametrize("lanes", [2, 3, 32])
+def test_warp_upper_bound_model(lanes):
+    """Every key between and on the values of sorted su (ties and runs of
+    equal values included) gives searchsorted's answer; on a dipped su the
+    answer is nondecreasing in the key and a binary search's."""
+    rng = np.random.default_rng(lanes)
+    for L in (1, 2, 31, 33, 100, 1025):
+        su = np.sort(rng.integers(0, L // 3 + 2, L)).astype(np.float32)
+        keys = np.arange(-1, L // 3 + 3, 0.5, dtype=np.float32)
+        got = [_warp_upper_bound(su, c, lanes) for c in keys]
+        np.testing.assert_array_equal(
+            got, np.searchsorted(su, keys, side="right"))
+        if L > 2:
+            dip, k = _dipped(rng, L, 3)
+            keys = np.sort(np.concatenate([dip[k], rng.uniform(size=L)]))
+            got = np.array([_warp_upper_bound(dip, c, lanes) for c in keys])
+            assert (np.diff(got) >= 0).all()
+            below = np.concatenate([[-np.inf], dip])[got]
+            above = np.concatenate([dip, [np.inf]])[got]
+            assert (below <= keys).all() and (keys < above).all()

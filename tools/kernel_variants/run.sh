@@ -1,16 +1,22 @@
 #!/bin/bash
-# Build the variant timers of B2 and B3 with nvcc and run them on the card:
-#   bash tools/kernel_variants/run.sh
+# Build the variant timers of B2, B3 and B5 (or those named) with nvcc and
+# run them on the card:
+#   bash tools/kernel_variants/run.sh [b2] [b3] [b5]
 # Each prints one JSON line per size or offspring shape, device us a launch.
 set -e
 cd "$(dirname "$0")"
 out=../../particles_tpu_torch/_build/variants
 mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-flags="-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3"
+flags="-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v"
 nvcc=$(command -v nvcc || echo /usr/local/cuda/bin/nvcc)
-"$nvcc" $flags -o "$out/b3_variants" b3_variants.cu &
-"$nvcc" $flags -o "$out/b2_variants" b2_variants.cu &
-wait
-timeout 300 "$out/b3_variants"
-timeout 300 "$out/b2_variants"
+names=${*:-b3 b2 b5}
+pids=()
+for n in $names; do
+  "$nvcc" $flags -o "$out/${n}_variants" "${n}_variants.cu" &
+  pids+=($!)
+done
+for p in "${pids[@]}"; do wait "$p"; done
+for n in $names; do
+  timeout 300 "$out/${n}_variants"
+done

@@ -13,12 +13,14 @@ parent commit's, unpacked with ``git archive``) with this script, so that
 two versions are compared on one card in one call, in turns.
 
 1. Each kernel at N = 2^20 on ``chip_smoke.py`` phase 10's inputs (B2 also
-   as the filter calls it, one f32 column, on Dirichlet(1) and on
+   as the filter calls it, one f32 column, and B5 also on the CDF of
    degenerate weights), and the PyTorch call that computes the same
-   function where there is one: device ms a call and CUDA kernels a call,
-   from a ``torch.profiler`` window of 20 calls, and host us a call, the
-   time to enqueue 100 calls back to back (fewer launches than the
-   stream's queue holds, so the host never waits on the device).
+   function where there is one: ms a call back to back (``chip_smoke.py``'s
+   CUDA-event timer, median of 25 batches of 10 calls), device ms a call
+   and CUDA kernels a call, from a ``torch.profiler`` window of 20 calls,
+   and host us a call, the time to enqueue 100 calls back to back (fewer
+   launches than the stream's queue holds, so the host never waits on the
+   device).
 2. The bootstrap filter of ``chip_smoke.py`` phase 4 (N = 2^20; its
    weights degenerate, so every step resamples) with each scheme that
    runs kernels B1 to B5: wall ms a step of a warm unprofiled window of 50
@@ -93,6 +95,7 @@ def main():
     z_deg = ops.systematic_z_fused(W_deg, u, N)
     x = torch.randn(N, device=dev)
     cs = ops.normalised_cumsum_exact(W)
+    cs_deg = ops.normalised_cumsum_exact(W_deg)
     cs1 = cs.clone()
     cs1[-1:].fill_(1.0)
     uu = torch.rand(N, device=dev)
@@ -109,6 +112,8 @@ def main():
         "normalised_cumsum": lambda: ops.normalised_cumsum_exact(W),
         "repeat_by_su": lambda: ops.ancestors_by_su(uu, cs1),
         "merge_rank_counts": lambda: ops.merge_rank_counts(su, cs, N),
+        "merge_rank_counts_degenerate":
+            lambda: ops.merge_rank_counts(su, cs_deg, N),
         "running_max": lambda: ops.running_max(zi),
         "library:searchsorted(z, j, right=True)":
             lambda: torch.searchsorted(z, j, right=True),
@@ -116,17 +121,20 @@ def main():
         "library:searchsorted(cs, u)": lambda: torch.searchsorted(cs1, uu),
         "library:searchsorted(su, cs, right=True)":
             lambda: torch.searchsorted(su, cs, right=True),
+        "library:searchsorted(su, cs_degenerate, right=True)":
+            lambda: torch.searchsorted(su, cs_deg, right=True),
     }
     kernels = {}
     for name, fn in calls.items():
         by_kernel, per_call = cs_mod._device_window(torch, fn, 20)
-        kernels[name] = {"device_ms": sum(by_kernel.values()),
+        kernels[name] = {"ms": cs_mod._time_ms(torch, fn),
+                         "device_ms": sum(by_kernel.values()),
                          "launches_per_call": per_call,
                          "host_us": _host_us(torch, fn)}
     print(json.dumps({"part": "kernels", **head, "N": N,
                       "kernels": kernels}), flush=True)
 
-    T = 20 + 2 * STEPS
+    T = 20 + STEPS + 5 * (STEPS - 1)   # room for retaken profiler windows
     y = torch.from_numpy(cs_mod._simulate_y(T)).to(dev)
     fk = ssms.Bootstrap(ssm=kalman.LinearGauss(rho=cs_mod.RHO,
                                                sigmaX=cs_mod.SIGX,
