@@ -50,7 +50,11 @@ not 0 and no result line is printed.  It exits with an error at once when
    cs_i < su[z_i]``).
 7. Kernel B4 (move by the inverse CDF) against its plain version, exact:
    unsorted and sorted uniforms, M = 4N, phase 3's payloads, the fused
-   form with ancestors and ancestors alone.
+   form with ancestors and ancestors alone; then, at N = 2^20 - 513, all
+   weight on one particle (first, middle, last), degenerate weights,
+   uniforms tied with cs values, uniforms at 0, an ulp below the top,
+   negative and past the top, an integer cs served at idx + 0.5, cs[-1] =
+   0 (a constant bucket function) and M = 4N.
 8. Kernel B6 (running max) against ``torch.cummax``, exact: int32 over
    the whole range (negative values) at every N.
 9. Every resampling scheme: ``multiSMC(fk, N=2^20, resampling=[six
@@ -66,9 +70,10 @@ not 0 and no result line is printed.  It exits with an error at once when
     the same function where there is one, and the bound; each kernel's and
     library call's device time (``device_ms``: the sum of its CUDA
     kernels' time in a ``torch.profiler`` window of 20 calls, per call) and
-    CUDA kernels per call (``launches_per_call``: 1 for B2, B3 and B5); B2
-    and B5 also on the degenerate weights the filter gives them; then the
-    kernels line and the result line.
+    CUDA kernels per call (``launches_per_call``: 1 for B2, B3 and B5, 2
+    for B4); B2, B4 and B5 also on the degenerate weights the filter gives
+    them, B4 also on sorted uniforms; then the kernels line and the result
+    line.
 """
 
 import json
@@ -515,6 +520,22 @@ def main():
 
     # -- 7. B4 against its plain version, exact ------------------------------
     n_cases = 0
+
+    def check_b4(tag, su, cs, cols):
+        nonlocal n_cases
+        M = su.shape[0]
+        ys, A = ops.repeat_cols_su(su, cs, M, cols, want_anc=True)
+        A_only = ops.ancestors_by_su(su, cs)
+        yps, Ap = ops.repeat_cols_su_plain(su, cs, M, cols, want_anc=True)
+        torch.cuda.synchronize()
+        _check(A.dtype == torch.int64 and torch.equal(A, Ap)
+               and torch.equal(A_only, Ap), f"{tag}: ancestors differ")
+        for out, out_plain in zip(ys, yps, strict=True):
+            _check(out.dtype == out_plain.dtype
+                   and torch.equal(out, out_plain),
+                   f"{tag}: {out.dtype} payload differs")
+        n_cases += 1
+
     for (N, wkind), cs in cdfs.items():
         if wkind != "dirichlet0.05":
             continue
@@ -522,25 +543,46 @@ def main():
         cs1[-1] = 1.0
         cols = _payloads(torch, dev, N)
         u = torch.rand(N, device=dev)
-        forms = [("unsorted", u), ("sorted", u.sort().values),
-                 ("M=4N", torch.rand(4 * N, device=dev))]
-        for form, su in forms:
-            M = su.shape[0]
-            ys, A = ops.repeat_cols_su(su, cs1, M, cols, want_anc=True)
-            A_only = ops.ancestors_by_su(su, cs1)
-            yps, Ap = ops.repeat_cols_su_plain(su, cs1, M, cols,
-                                               want_anc=True)
-            torch.cuda.synchronize()
-            tag = f"B4 N={N} {form}"
-            _check(A.dtype == torch.int64 and torch.equal(A, Ap)
-                   and torch.equal(A_only, Ap), f"{tag}: ancestors differ")
-            for out, out_plain in zip(ys, yps, strict=True):
-                _check(out.dtype == out_plain.dtype
-                       and torch.equal(out, out_plain),
-                       f"{tag}: {out.dtype} payload differs")
-            n_cases += 1
+        for form, su in [("unsorted", u), ("sorted", u.sort().values),
+                         ("M=4N", torch.rand(4 * N, device=dev))]:
+            check_b4(f"B4 N={N} {form}", su, cs1, cols)
+    # strained cases, N not a power of two
+    N = N_MAIN - 513
+    cols = _payloads(torch, dev, N)
+    cs = cdfs[(N, "dirichlet1")].clone()
+    cs[-1:].fill_(1.0)
+    u = torch.rand(N, device=dev)
+    strained = []
+    for k in (0, N // 2, N - 1):
+        W1 = torch.zeros(N, device=dev)
+        W1[k:k + 1].fill_(1.0)
+        strained.append((f"all weight on particle {k}", u,
+                         ops.normalised_cumsum_exact(W1)))
+    strained.append(("degenerate weights", u, cdfs[(N, "degenerate")]))
+    tied = u.clone()
+    tied[::2] = cs[torch.randint(0, N, (tied[::2].shape[0],), device=dev)]
+    strained.append(("su tied with cs", tied, cs))
+    top = cs[-1:]
+    edges = torch.cat([torch.zeros(1, device=dev),
+                       torch.nextafter(top, torch.zeros_like(top)), top,
+                       torch.tensor([-0.5, 1.5], device=dev)])
+    strained.append(("su at 0, an ulp below the top, negative and past it",
+                     torch.cat([edges, u]), cs))
+    cs_int = torch.from_numpy(np.cumsum(rng.multinomial(
+        N, np.full(N, 1.0 / N))).astype(np.float32)).to(dev)
+    strained.append(("integer cs at idx + 0.5",
+                     torch.randperm(N, device=dev).float() + 0.5, cs_int))
+    cs_zero = -torch.rand(N, device=dev).sort(descending=True).values
+    cs_zero[-1:].fill_(0.0)
+    strained.append(("cs[-1] = 0", 2 * torch.rand(N, device=dev) - 1,
+                     cs_zero))
+    strained.append(("M=4N", torch.rand(4 * N, device=dev), cs))
+    for form, su, c in strained:
+        check_b4(f"B4 {form} (N={N})", su, c, cols)
     _emit({"phase": 7, "kernel": "repeat_by_su", "cases": n_cases,
-           "max_abs_err_vs_plain": 0, "tolerance": "exact"})
+           "strained_cases": len(strained), "guide_buckets":
+           ops.guide_buckets(N_MAIN), "max_abs_err_vs_plain": 0,
+           "tolerance": "exact"})
 
     # -- 8. B6 against torch.cummax, exact -----------------------------------
     for N in Ns:
@@ -682,6 +724,8 @@ def main():
         device_ms, per_call = _device_ms(torch, kern)
         if name in ("normalised_cumsum", "repeat_by_z", "merge_rank_counts"):
             _check(per_call == 1, f"{name}: {per_call} CUDA kernels a call")
+        if name == "repeat_by_su":   # the guide table's build, the serve
+            _check(per_call == 2, f"{name}: {per_call} CUDA kernels a call")
         by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         by_ops = 1e3 * nops / OPS_PER_S
         path_launches = launches if path == "main path" else multi_launches
@@ -722,12 +766,34 @@ def main():
             torch, lambda: torch.searchsorted(su, cs_deg, right=True)),
         "library_device_ms": _device_ms(
             torch, lambda: torch.searchsorted(su, cs_deg, right=True))[0]}
+    # B4 on sorted uniforms, and on the degenerate CDF (nearly every query
+    # finds an empty range of cs)
+    b4_more = {}
+    for form, (q, c) in (("sorted", (su, cs1)), ("degenerate", (uu, cs_deg))):
+        def b4(q=q, c=c):
+            return ops.ancestors_by_su(q, c)
+
+        def lib_b4(q=q, c=c):
+            return torch.searchsorted(c, q)
+
+        device_ms, per_call = _device_ms(torch, b4)
+        _check(per_call == 2, f"repeat_by_su {form}: {per_call} CUDA "
+                              f"kernels a call")
+        b4_more[form] = {
+            "ms": _time_ms(torch, b4),
+            "plain_ms": _time_ms(torch, lambda q=q, c=c: (
+                ops.repeat_cols_su_plain(q, c, M, [], want_anc=True))),
+            "device_ms": device_ms, "launches_per_call": per_call,
+            "library_ms": _time_ms(torch, lib_b4),
+            "library_device_ms": _device_ms(torch, lib_b4)[0]}
     _emit({"phase": 10, "N": N_MAIN, "nvidia_smi": smi,
            "timing": "CUDA events, median of 25 batches of 10 calls; "
                      "device_ms: torch.profiler, 20 calls",
            "forms": "B2 and B4 ancestors only; B4 on unsorted uniforms",
            "repeat_by_z_one_f32_column": b2_col,
            "merge_rank_counts_degenerate": b5_deg,
+           "repeat_by_su_sorted": b4_more["sorted"],
+           "repeat_by_su_degenerate": b4_more["degenerate"],
            "bound": "max(bytes / 3.35 TB/s, operations / 67 TOP/s)"})
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

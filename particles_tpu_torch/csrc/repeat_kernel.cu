@@ -11,9 +11,9 @@
 //
 // B4 replaces the same kernel in su-mode (plan from make_repeat_plan_su).
 // For uniforms su ((M,) f32, in any order) and cumulative weights cs ((N,)
-// f32, nondecreasing, cs[N-1] >= every su) it serves
+// f32, nondecreasing, any range) it serves
 //
-//   Y_p[j] = X_p[A_j],   A_j = #{i : cs_i < su_j},
+//   Y_p[j] = X_p[A_j],   A_j = min(#{i : cs_i < su_j}, N - 1),
 //
 // that is cs_{A_j - 1} < su_j <= cs_{A_j} (searchsorted side='left').
 //
@@ -23,9 +23,9 @@
 // bits: any dtype, (N,) or (N, d), comes back exact, with no float round
 // trip.
 //
-// What bounds them: bytes.  B2 reads z and X and writes Y (12 bytes a
-// particle for one f32 column, 3.8 us at N = M = 2^20); B4 with ancestors
-// only reads su and cs and writes A (16 bytes a particle).
+// Their byte bounds: B2 reads z and X and writes Y (12 bytes a particle for
+// one f32 column, 3.8 us at N = M = 2^20); B4 with ancestors only reads su
+// and cs and writes A (16 bytes a particle, 5.0 us).
 //
 // B2 is a merge path (k_merge_serve).  A_j is the number of z entries
 // before j in the merge of z with 0, 1, ..., M-1 in which a tie puts z_k
@@ -42,18 +42,62 @@
 // 16 items: of the shapes timed on the H100 (128 to 512 threads, 4 to 16
 // items, a first search round by the whole block) it was the fastest.
 //
-// B4 keeps one thread per output finding A_j by a binary search of cs for
-// su_j (the queries come in any order; cs, 4 MB at N = 2^20, stays in the
-// 50 MB L2).  The TPU kernel's visit plan, z transpose, one-hot select,
-// bitcast of su and the sort around an unsorted query stream existed to
-// avoid gathers and searches on the TPU; here a gather is a load.
+// B4 is a cutpoint (guide) table, Chen and Asau's method for the inverse
+// CDF.  The queries come in any order, so the first port's binary search
+// of all of cs for each one made ~10 random loads a query below the levels
+// that stay in L1, and a random load is what a query costs on this card
+// (each divergent warp load is up to 32 separate L2 requests).  With a
+// bucket function f(x) = clamp(floor(x s), 0, K - 1), K a power of two
+// (N/8 by default, ops.guide_buckets) and s = K / cs[N-1]:
+//
+//   1. k_guide_build writes, for each bucket b < K, the 16-byte entry
+//      {G[b], G[b+1], cs[G[b]], cs[G[b]+1]}, G[b] = #{i : f(cs_i) < b}.
+//      A lane a bucket: it takes the least float t_b with f(t_b) >= b (b / s
+//      moved by an ulp or two) and counts the cs below t_b by a branch-free
+//      search in radix 4 (11 rounds of three independent loads at 2^20); it
+//      takes G[b+1] from the next lane, so a warp writes 31 entries as one
+//      contiguous run.  Neighbouring lanes search for neighbouring
+//      thresholds, so a round's loads share their sectors; on a degenerate
+//      CDF every search takes the same path.  It stores s after the table.
+//   2. k_serve_guide: one thread a query loads the entry of f(su_j), one
+//      16-byte load.  An empty range, or cs[G[b]] >= su_j, gives G[b]; one
+//      entry, or cs[G[b]+1] >= su_j, gives G[b] + 1; else cs[G[b]+2, G[b+1])
+//      is binary-searched (about 8 entries on Dirichlet(1) weights at K =
+//      N/8, none on the filter's degenerate ones).
+//
+// The result is exact for any f that is monotone and computed the same way
+// in both launches: cs_i >= u gives f(cs_i) >= f(u), so G[f(u)] <= A, and
+// cs_i < u gives f(cs_i) <= f(u), so A <= G[f(u) + 1].  The build counts
+// by thresholds, which is the same G: for 1 <= b < K, f(x) >= b exactly
+// when RN(x s) >= b (K <= 2^24, so b is an exact float), a monotone test.
+// A bad scale costs only speed: where s is not a positive finite float
+// (cs[N-1] <= 0, too small or not finite) s = 0, f is constant, G[b] = N
+// for every b >= 1, and every query searches all of cs.  f multiplies with
+// __fmul_rn and floors by comparisons and __float2int_rd, so that nvcc
+// cannot contract it differently in the two launches; the serve reads the
+// s that the build stored.
+//
+// What bounds B4 now: the random 16-byte load of each query's entry (the
+// serve alone on a degenerate CDF, where it reads no cs, is ~2.7x the byte
+// bound) and the build's latency (11 dependent rounds a lane).  K trades
+// them: a larger K shortens the searches of the serve and lengthens the
+// build; tools/kernel_variants/b4_variants.cu times K = N/8 to 2N, the
+// build's other shapes, one cooperative launch against two, the first
+// port and a two-level search.
 
+// The TPU kernel's visit plan, z transpose, one-hot select, bitcast of su
+// and the sort around an unsorted query stream existed to avoid gathers
+// and searches on the TPU; here a gather is a load.
+
+#include <cfloat>
+#include <math.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;        // B4: one thread per output
+constexpr int kThreads = 256;        // B4: a block's threads
+constexpr int kGuideRadix = 4;       // B4: the build's search radix
 constexpr int kMaxPayloads = 8;
 constexpr int kMergeThreads = 256;   // B2: a block's threads
 constexpr int kMergeItems = 16;      // items of the merge a thread
@@ -65,26 +109,6 @@ struct Payloads {
   int64_t width[kMaxPayloads];  // elements per row
   int esize[kMaxPayloads];      // bytes per element: 1, 2, 4 or 8
   int P;
-};
-
-// B4's search: #{i < N : cs_i < su_j}
-struct BySu {
-  const float* su;
-  const float* cs;
-  int64_t N;
-  __device__ __forceinline__ int64_t operator()(int64_t j) const {
-    const float s = __ldg(su + j);
-    int64_t lo = 0, hi = N;
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) >> 1;
-      if (__ldg(cs + mid) < s) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    return lo;
-  }
 };
 
 template <typename T>
@@ -109,13 +133,132 @@ __device__ __forceinline__ void serve(const Payloads& p, int64_t* anc,
   if (anc != nullptr) anc[j] = a;
 }
 
-// B4: one thread per output.
-__global__ void k_serve_su(BySu search, int64_t N, int64_t M, Payloads p,
-                           int64_t* __restrict__ anc) {
+// B4's bucket scale: K / cs[N-1], or 0 (f constant) where that is not a
+// positive finite float.
+__device__ __forceinline__ float guide_scale(const float* __restrict__ cs,
+                                             int N, int K) {
+  const float s = __fdiv_rn((float)K, __ldg(cs + N - 1));
+  return s > 0.0f && s <= FLT_MAX ? s : 0.0f;
+}
+
+// B4's bucket of x: clamp(floor(x s), 0, K - 1), with 0 for a NaN product
+// (an infinite x at s = 0).  Monotone in x for every s >= 0.
+__device__ __forceinline__ int guide_bucket(float x, float s, int K) {
+  const float v = __fmul_rn(x, s);
+  if (!(v > 0.0f)) return 0;
+  if (v >= (float)K) return K - 1;
+  return __float2int_rd(v);
+}
+
+// The least float t with f(t) >= b, for b in [1, K - 1] and s > 0: there
+// f(x) >= b exactly when RN(x s) >= b (b <= 2^24 is an exact float), which
+// is monotone in x.  t starts at b / s, within an ulp or two of it, and
+// moves by ulps.
+__device__ __forceinline__ float guide_threshold(int b, float s) {
+  const float fb = (float)b;
+  float t = __fdiv_rn(fb, s);
+  if (__fmul_rn(t, s) >= fb) {
+    for (float d = nextafterf(t, -INFINITY); __fmul_rn(d, s) >= fb;
+         d = nextafterf(d, -INFINITY)) {
+      t = d;
+    }
+  } else {
+    do {
+      t = nextafterf(t, INFINITY);
+    } while (!(__fmul_rn(t, s) >= fb));
+  }
+  return t;
+}
+
+// #{i < N : cs_i < t} by a branch-free search in radix R: the count grows
+// by each power of R, largest first, by as many steps as the R - 1 probes
+// above it find entries < t (those probes are a prefix: cs is
+// nondecreasing).  A round's R - 1 loads are independent, so 2^20 entries
+// take 11 dependent rounds at R = 4 instead of 21 at R = 2.
+template <int R>
+__device__ __forceinline__ int count_below(const float* __restrict__ cs,
+                                           int N, float t) {
+  int64_t step = 1;
+  while (step * R <= N) step *= R;
+  int64_t pos = 0;
+  for (; step > 0; step /= R) {
+    int c = 0;
+#pragma unroll
+    for (int j = 1; j < R; ++j) {
+      const int64_t p = pos + step * j;
+      c += p <= N && __ldg(cs + p - 1) < t;
+    }
+    pos += step * c;
+  }
+  return (int)pos;
+}
+
+// G[b] = #{i : f(cs_i) < b}: 0 for b = 0, N for b >= K or s = 0 (f is 0
+// everywhere), else #{i : cs_i < t_b}.
+template <int R>
+__device__ __forceinline__ int guide_count(const float* __restrict__ cs,
+                                           int N, int64_t b, float s, int K) {
+  if (b == 0) return 0;
+  if (b >= K || s == 0.0f) return N;
+  return count_below<R>(cs, N, guide_threshold((int)b, s));
+}
+
+// B4, launch 1: for each bucket b < K the entry {G[b], G[b+1], cs[G[b]],
+// cs[G[b] + 1]} (indices clamped to N - 1 for the loads), and s in *s_out.
+// Warp w owns the 31 buckets [31 w, 31 w + 31): lane l counts G[31 w + l]
+// (radix kGuideRadix) and takes G[b + 1] from lane l + 1, so every lane
+// counts once and the warp writes its 31 entries as 496 contiguous bytes.
+// Neighbouring lanes search for neighbouring thresholds, so a round's
+// loads share their sectors (on one particle with all the weight, every
+// search takes the same path).
+__global__ void __launch_bounds__(kThreads)
+k_guide_build(const float* __restrict__ cs, int N, int K,
+              int4* __restrict__ E, float* __restrict__ s_out) {
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int64_t b = (t >> 5) * 31 + lane;
+  const float s = guide_scale(cs, N, K);
+  if (t == 0) *s_out = s;
+  if (b - lane >= K) return;         // the whole warp
+  const int g = guide_count<kGuideRadix>(cs, N, b, s, K);
+  const int g1 = __shfl_down_sync(0xffffffffu, g, 1);
+  if (lane < 31 && b < K) {
+    const float c0 = __ldg(cs + (g < N ? g : N - 1));
+    const float c1 = __ldg(cs + (g + 1 < N ? g + 1 : N - 1));
+    E[b] = make_int4(g, g1, __float_as_int(c0), __float_as_int(c1));
+  }
+}
+
+// B4, launch 2: one thread per output.  A_j = #{i : cs_i < su_j} lies in
+// [lo, hi] of the entry of b = f(su_j); the entry's two cs settle it when
+// the range holds at most two, else cs[lo + 2, hi) is searched.
+__global__ void __launch_bounds__(kThreads)
+k_serve_guide(const float* __restrict__ su, const float* __restrict__ cs,
+              int N, int64_t M, const int4* __restrict__ E,
+              const float* __restrict__ s_in, int K, Payloads p,
+              int64_t* __restrict__ anc) {
   const int64_t j = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (j >= M) return;
-  int64_t a = search(j);
-  if (a > N - 1) a = N - 1;  // reached only off the contract (cs too low)
+  const float u = __ldg(su + j);
+  const int4 e = __ldg(E + guide_bucket(u, __ldg(s_in), K));
+  int a;
+  if (e.x == e.y || !(__int_as_float(e.z) < u)) {
+    a = e.x;
+  } else if (e.y - e.x == 1 || !(__int_as_float(e.w) < u)) {
+    a = e.x + 1;
+  } else {
+    int lo = e.x + 2, hi = e.y;
+    while (lo < hi) {
+      const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+      if (__ldg(cs + mid) < u) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    a = lo;
+  }
+  if (a > N - 1) a = N - 1;  // every cs_i < su_j
   serve(p, anc, a, j);
 }
 
@@ -241,14 +384,31 @@ int pt_repeat_by_z(const void* z, long long N, long long M, int P,
   return (int)cudaGetLastError();
 }
 
-// B4.  su: (M,) f32 and cs: (N,) f32 on the device; the rest as for B2.
+// B4.  su: (M,) f32 and cs: (N,) f32 on the device, N < 2^31; guide: 4 K +
+// 1 int32 words of scratch, 16-byte aligned (the K entries, then s), K in
+// [1, 2^24].  With build != 0 the call first builds the guide (two
+// launches), else it serves from the guide an earlier call built on the
+// same cs and K (one launch).  The rest as for B2.
 int pt_repeat_by_su(const void* su, long long M, const void* cs, long long N,
-                    int P, const void* desc, void* anc, void* stream) {
+                    void* guide, long long K, int build, int P,
+                    const void* desc, void* anc, void* stream) {
   Payloads p;
   if (!pack(P, (const long long*)desc, &p)) return (int)cudaErrorInvalidValue;
+  if (K < 1 || K > (1LL << 24) || N < 1 || N >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  int4* E = (int4*)guide;
+  float* s = (float*)(E + K);
+  if (build) {
+    const int64_t threads = (K + 30) / 31 * 32;   // a warp per 31 buckets
+    k_guide_build<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads,
+                    0, st>>>((const float*)cs, (int)N, (int)K, E, s);
+  }
   const int64_t nb = (M + kThreads - 1) / kThreads;
-  k_serve_su<<<(unsigned)nb, kThreads, 0, (cudaStream_t)stream>>>(
-      BySu{(const float*)su, (const float*)cs, N}, N, M, p, (int64_t*)anc);
+  k_serve_guide<<<(unsigned)nb, kThreads, 0, st>>>(
+      (const float*)su, (const float*)cs, (int)N, M, E, s, (int)K, p,
+      (int64_t*)anc);
   return (int)cudaGetLastError();
 }
 

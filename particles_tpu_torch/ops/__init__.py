@@ -26,10 +26,12 @@ from particles_tpu_torch.ops.merge_rank_kernel import (  # noqa: F401
     merge_rank_counts_plain,
 )
 from particles_tpu_torch.ops.repeat_kernel import (  # noqa: F401
+    GUIDE_SHIFT,
     MAX_PAYLOADS,
     MERGE_TILE,
     ancestors_by_su,
     ancestors_by_z,
+    guide_buckets,
     repeat_by_z,
     repeat_cols,
     repeat_cols_plain,

@@ -11,24 +11,36 @@ is::
     Y[j] = X[A_j],   A_j = #{k : z_k <= j},   j < M
 
 and for uniforms ``su`` ((M,) float32, sorted or not) and cumulative
-weights ``cs`` ((N,) float32, nondecreasing, ``cs[-1] >= max(su)``) the
-su-move is::
+weights ``cs`` ((N,) float32, nondecreasing, any range) the su-move
+is::
 
     Y[j] = X[A_j],   A_j = #{i : cs_i < su_j}   (searchsorted side='left')
 
-with ``A`` clipped to N - 1.
+with ``A`` clipped to N - 1 (``cs`` may have any range: the JAX package
+serves an integer ``cs`` at ``idx + 0.5``).
 
-On this card both kernels (``csrc/repeat_kernel.cu``) are bound by bytes.
-The z-move walks the merge of z with 0..M-1 (ties put z first): each
-block owns an equal slice of that merge, so one particle with all the
-offspring or long runs of childless ones cost the same, and z is read
-once.  The su-move runs one thread per output, which binary-searches cs
-for ``su_j``.  Both copy row ``A_j`` of every payload as raw bits, so
-payloads of any dtype with 1-, 2-, 4- or 8-byte elements, (N,) or (N, d,
-...), come back exact; up to ``MAX_PAYLOADS`` of them share one launch,
-and the ancestor vector ``A`` (int64) can ride the same launch.  There is
-no visit plan, no f32 round trip, no sort around unsorted queries and no
-``M % N`` gate: those answered TPU limits.
+The kernels are in ``csrc/repeat_kernel.cu``.  The z-move walks the merge
+of z with 0..M-1 (ties put z first): each block owns an equal slice of
+that merge, so one particle with all the offspring or long runs of
+childless ones cost the same, and z is read once.  The su-move is a
+cutpoint (guide) table.  With a bucket function ``f(x) = clamp(floor(x
+s), 0, K - 1)``, ``K = guide_buckets(N)`` (N/8) and ``s = K / cs[-1]``
+computed and stored on the card, one launch writes for each bucket b the
+16-byte entry ``{G[b], G[b+1], cs[G[b]], cs[G[b]+1]}``, ``G[b] = #{i:
+f(cs_i) < b}``, and a second serves each query from the entry of
+``f(su_j)``: one random load, then a search of ``cs[G[b]+2, G[b+1])`` only
+when the two cs in the entry do not settle it (none on degenerate
+weights).  That is exact for any monotone ``f`` computed alike in both
+launches; a scale that is not a positive finite float (``cs[-1] <= 0``)
+makes ``f`` constant and costs only speed.  On an H100 a query's random
+load is what bounds the serve, where the first port's search of all of cs
+made about ten; PERF.md has the times.  Both moves copy row ``A_j`` of
+every payload as raw bits, so payloads of any dtype with 1-, 2-, 4- or
+8-byte elements, (N,) or (N, d, ...), come back exact; up to
+``MAX_PAYLOADS`` of them share one launch, and the ancestor vector ``A``
+(int64) can ride the same launch.  There is no visit plan, no f32 round
+trip, no sort around unsorted queries and no ``M % N`` gate: those
+answered TPU limits.
 """
 
 from __future__ import annotations
@@ -40,12 +52,14 @@ import torch
 from particles_tpu_torch import _build
 from particles_tpu_torch.ops._launch import on_device
 
-__all__ = ["MAX_PAYLOADS", "MERGE_TILE", "repeat_cols",
-           "repeat_cols_plain", "repeat_by_z", "serve_by_z", "ancestors_by_z",
-           "repeat_cols_su", "repeat_cols_su_plain", "ancestors_by_su"]
+__all__ = ["MAX_PAYLOADS", "MERGE_TILE", "GUIDE_SHIFT", "guide_buckets",
+           "repeat_cols", "repeat_cols_plain", "repeat_by_z", "serve_by_z",
+           "ancestors_by_z", "repeat_cols_su", "repeat_cols_su_plain",
+           "ancestors_by_su"]
 
 MAX_PAYLOADS = 8   # payloads per launch; kMaxPayloads in the CUDA source
 MERGE_TILE = 4096  # items of the merge a block of the z-move owns; kMergeTile
+GUIDE_SHIFT = 3    # the su-move's buckets: a 2^-GUIDE_SHIFT share of N
 
 _lib = None
 
@@ -65,8 +79,9 @@ def _kernels():
         lib.pt_repeat_by_z.restype = ctypes.c_int
         lib.pt_repeat_by_su.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
         lib.pt_repeat_by_su.restype = ctypes.c_int
         if (lib.pt_repeat_max_payloads() != MAX_PAYLOADS
                 or lib.pt_repeat_merge_tile() != MERGE_TILE):
@@ -75,6 +90,13 @@ def _kernels():
                                "merge tile")
         _lib = lib
     return _lib
+
+
+def guide_buckets(N):
+    """K, the buckets of the su-move's guide table for ``N`` particles: the
+    least power of two >= N, over ``2^GUIDE_SHIFT``, in [1, 2^24] (every
+    bucket index an exact float32)."""
+    return min(1 << max((N - 1).bit_length() - GUIDE_SHIFT, 0), 1 << 24)
 
 
 def _check_M(M, what):
@@ -225,9 +247,11 @@ def repeat_cols_su(su, cs, M, cols, want_anc=False):
     vector: ``([Y_p], A or None)``, ``A`` int64.
 
     Counterpart of ``repeat_with_plan_cols`` on a ``make_repeat_plan_su``
-    plan, with the same launch rules as :func:`repeat_cols`.  A CPU ``cs``
-    goes to :func:`repeat_cols_su_plain`; a CUDA ``cs`` to the kernel,
-    which raises if it cannot build or launch.
+    plan, with the same launch rules as :func:`repeat_cols`; the first
+    launch also builds the guide table (two CUDA kernels), in scratch
+    allocated here with one ``torch.empty``.  A CPU ``cs`` goes to
+    :func:`repeat_cols_su_plain`; a CUDA ``cs`` to the kernels, which raise
+    if they cannot build or launch.
     """
     cols = list(cols)
     _check_su(su, cs, M, cols)
@@ -237,10 +261,18 @@ def repeat_cols_su(su, cs, M, cols, want_anc=False):
         raise ValueError(f"repeat_by_su: no kernel for device {cs.device}")
     lib = _kernels()
     N = cs.shape[0]
+    K = guide_buckets(N)
+    # K entries of 4 int32 (G[b], G[b+1], cs[G[b]], cs[G[b]+1]), then s
+    guide = torch.empty(4 * K + 1, dtype=torch.int32, device=cs.device)
+    built = False
 
     def launch(P, desc, anc, stream):
-        return lib.pt_repeat_by_su(su.data_ptr(), M, cs.data_ptr(), N, P,
-                                   desc, anc, stream)
+        nonlocal built
+        err = lib.pt_repeat_by_su(su.data_ptr(), M, cs.data_ptr(), N,
+                                  guide.data_ptr(), K, not built, P, desc,
+                                  anc, stream)
+        built = True
+        return err
 
     served, A, n = _launch_chunks(launch, N, M, cols, want_anc, cs.device)
     repeat_cols_su.launches += n

@@ -16,9 +16,10 @@ import torch
 from particles_tpu_torch import kalman, ops
 from particles_tpu_torch import state_space_models as ssms
 from particles_tpu_torch.core import SMC, multiSMC
-from test_torch_kernel_models import (B2_KINDS, B3_KINDS, B5_DIP_KEYS,
-                                      B5_GEOMETRIES, B5_KINDS, _counts,
-                                      _dip_case, _rank_blocks, _rank_case,
+from test_torch_kernel_models import (B2_KINDS, B3_KINDS, B4_KINDS,
+                                      B5_DIP_KEYS, B5_GEOMETRIES, B5_KINDS,
+                                      _counts, _dip_case, _guide_ancestors,
+                                      _guide_case, _rank_blocks, _rank_case,
                                       _weights)
 
 pytestmark = pytest.mark.cuda
@@ -195,31 +196,97 @@ def _cdf(W):
     return cs
 
 
-@pytest.mark.parametrize("N,k", [(1, 1), (1000, 1), (65539, 1), (1000, 4)])
-@pytest.mark.parametrize("order", ["sorted", "unsorted"])
-def test_repeat_su_kernel_matches_plain(dev, N, k, order):
-    """Exact: sorted and unsorted queries, M = k N, several dtypes, the
-    fused form with ancestors and the ancestors-only form."""
-    cs = _cdf(torch.from_numpy(_weights_dirichlet(N, 0.3, N + 3)).to(dev))
-    u = torch.rand(k * N, device=dev)
-    if order == "sorted":
-        u = u.sort().values
-    cols = [torch.randn(N, device=dev),
+def _su_payloads(N, dev):
+    return [torch.randn(N, device=dev),
             torch.randn(N, 2, device=dev, dtype=torch.float64),
             torch.randint(2 ** 24, 2 ** 31 - 1, (N,), device=dev,
                           dtype=torch.int32),
             torch.randint(-128, 127, (N,), device=dev, dtype=torch.int8),
             torch.randn(N, 3, device=dev).to(torch.float16)]
+
+
+def _check_su_move(su, cs, dev, cols=None):
+    """The kernel against its plain version, exact: ancestors with the
+    payloads, and ancestors alone."""
+    N, M = cs.shape[0], su.shape[0]
+    cols = _su_payloads(N, dev) if cols is None else cols
     before = ops.repeat_cols_su.launches
-    served, A = ops.repeat_cols_su(u, cs, k * N, cols, want_anc=True)
-    A_only = ops.ancestors_by_su(u, cs)
+    served, A = ops.repeat_cols_su(su, cs, M, cols, want_anc=True)
+    A_only = ops.ancestors_by_su(su, cs)
     assert ops.repeat_cols_su.launches == before + 2
-    ref, A_ref = ops.repeat_cols_su_plain(u, cs, k * N, cols, want_anc=True)
+    ref, A_ref = ops.repeat_cols_su_plain(su, cs, M, cols, want_anc=True)
     torch.cuda.synchronize()
     assert A.dtype == torch.int64
     assert torch.equal(A, A_ref) and torch.equal(A_only, A_ref)
     for y, yp in zip(served, ref, strict=True):
         assert y.dtype == yp.dtype and torch.equal(y, yp)
+
+
+@pytest.mark.parametrize("N,k", [(1, 1), (1000, 1), (65539, 1), (1000, 4),
+                                 (2 ** 20 - 513, 4)])
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "tied"])
+def test_repeat_su_kernel_matches_plain(dev, N, k, order):
+    """Exact: sorted, unsorted and tied queries (equal to cs values), M =
+    k N, several dtypes, the fused form with ancestors and the
+    ancestors-only form."""
+    cs = _cdf(torch.from_numpy(_weights_dirichlet(N, 0.3, N + 3)).to(dev))
+    u = torch.rand(k * N, device=dev)
+    if order == "sorted":
+        u = u.sort().values
+    elif order == "tied":
+        u[::2] = cs[torch.randint(0, N, (u[::2].shape[0],), device=dev)]
+    _check_su_move(u, cs, dev)
+
+
+@pytest.mark.parametrize("N", [7, 4093, 2 ** 20 - 513])
+@pytest.mark.parametrize("kind", B4_KINDS)
+def test_repeat_su_kernel_strained(dev, kind, N):
+    """Exact on the CPU model's cases at the card's guide table: one
+    particle with all the weight, ties, queries on cs values, at 0, an ulp
+    below the top, negative and past the top, an integer cs served at idx
+    + 0.5, cs[-1] = 0, negative, tiny, huge or infinite cs, M = 1, N/2 + 1
+    and 4N; and element for element the model's answer."""
+    su, cs = _guide_case(kind, N, np.random.default_rng(len(kind) + N))
+    want, _, _ = _guide_ancestors(su, cs, ops.guide_buckets(N))
+    su_t, cs_t = torch.from_numpy(su).to(dev), torch.from_numpy(cs).to(dev)
+    _check_su_move(su_t, cs_t, dev, cols=_su_payloads(N, dev)[:2])
+    np.testing.assert_array_equal(
+        ops.ancestors_by_su(su_t, cs_t).cpu().numpy(), want)
+
+
+def test_repeat_su_is_a_build_and_a_serve(dev):
+    """A build and a serve a call; a call with more payloads than one
+    launch takes builds once and serves twice, and is exact.  The profiler
+    now and then misses one kernel of a window, so the counts are held by
+    kernel name to within one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    N = 2 ** 20
+    cs = _cdf(torch.from_numpy(_weights_dirichlet(N, 1.0, 5)).to(dev))
+    u = torch.rand(N, device=dev)
+    cols = [torch.randn(N, device=dev) for _ in range(ops.MAX_PAYLOADS + 1)]
+    served, _ = ops.repeat_cols_su(u, cs, N, cols)
+    ref, _ = ops.repeat_cols_su_plain(u, cs, N, cols)
+    assert all(torch.equal(y, yp) for y, yp in zip(served, ref, strict=True))
+    calls = 10
+    for call, serves in ((lambda: ops.ancestors_by_su(u, cs), 1),
+                         (lambda: ops.repeat_cols_su(u, cs, N, cols), 2)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.key] = by_name.get(e.key, 0) + e.count
+        builds = sum(n for k, n in by_name.items() if "k_guide_build" in k)
+        serve = sum(n for k, n in by_name.items() if "k_serve_guide" in k)
+        assert sum(by_name.values()) == builds + serve, by_name
+        assert calls - 1 <= builds <= calls, by_name
+        assert serves * calls - 1 <= serve <= serves * calls, by_name
 
 
 @pytest.mark.parametrize("N,L,M", [(1000, 1000, 1000), (65539, 65539, 65539),
@@ -275,10 +342,10 @@ def test_merge_rank_kernel_on_a_dip(dev, keys):
 
 
 def test_trimmed_wrappers_raise_on_a_refused_launch(dev, monkeypatch):
-    """B1, B5 and B6 launch through on_device with one allocation; a
+    """B1, B4, B5 and B6 launch through on_device with one allocation; a
     refused launch raises and counts nothing (no fallback)."""
     from particles_tpu_torch.ops import cummax_kernel, merge_rank_kernel
-    from particles_tpu_torch.ops import z_kernel
+    from particles_tpu_torch.ops import repeat_kernel, z_kernel
 
     W = torch.full((1000,), 1e-3, device=dev)
     cs = ops.normalised_cumsum_exact(W)
@@ -287,6 +354,8 @@ def test_trimmed_wrappers_raise_on_a_refused_launch(dev, monkeypatch):
               lambda: ops.systematic_z_fused(W, 0.5, 1000)),
              (merge_rank_kernel, "pt_merge_rank_counts", ops.merge_rank_counts,
               lambda: ops.merge_rank_counts(cs, cs, 1000)),
+             (repeat_kernel, "pt_repeat_by_su", ops.repeat_cols_su,
+              lambda: ops.ancestors_by_su(cs, cs)),
              (cummax_kernel, "pt_running_max", ops.running_max,
               lambda: ops.running_max(zi))]
     for mod, fn, wrapper, call in calls:

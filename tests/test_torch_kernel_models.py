@@ -1,14 +1,16 @@
-"""Numpy models of how the port's CUDA kernels B2, B3 and B5 cut up their
-work, held against the kernels' plain PyTorch versions on the CPU.
+"""Numpy models of how the port's CUDA kernels B2, B3, B4 and B5 cut up
+their work, held against the kernels' plain PyTorch versions on the CPU.
 
 A CUDA kernel cannot run here, so these models repeat, step by step, the
 index arithmetic of ``particles_tpu_torch/csrc/repeat_kernel.cu``
 (``warp_split``, ``k_merge_serve``), ``csrc/z_kernel.cu``
-(``pt_normalised_cumsum``, ``k_cs_coop``) and
+(``pt_normalised_cumsum``, ``k_cs_coop``),
 ``csrc/merge_rank_kernel.cu`` (``warp_upper_bound``, ``window_counts``,
-``k_merge_rank``), over tile and grid sizes far smaller and larger than
-the card's, so that an off-by-one in a split, a tile edge or a prefix
-shows up where no card is.  Nothing in the package uses them.
+``k_merge_rank``) and B4's guide table in ``csrc/repeat_kernel.cu``
+(``guide_scale``, ``guide_bucket``, ``k_guide_build``, ``k_serve_guide``),
+over tile, grid and table sizes far smaller and larger than the card's,
+so that an off-by-one in a split, a tile edge, a prefix or a bucket shows
+up where no card is.  Nothing in the package uses them.
 
 B2 is held exactly: the merge path gives ``A_j = #{k: z_k <= j}`` with
 every j served once.  B3 is held bit for bit wherever the model's f32 sum
@@ -17,7 +19,8 @@ IEEE-rounded f32 arithmetic), and always to B3's tolerance: nondecreasing,
 ``|cs[-1] - 1| < 1e-6``, within ``N 2^-31 + 1e-6`` of float64.  B5 is held
 exactly on sorted uniforms, and on uniforms that dip to its other two
 contracts: z nondecreasing, every output written once, each a binary
-search's answer.
+search's answer.  B4 is held exactly against ``np.searchsorted(cs, su,
+side="left")`` clipped to N - 1, on any ``cs`` range and any scale.
 """
 
 import numpy as np
@@ -477,3 +480,313 @@ def test_warp_upper_bound_model(lanes):
             below = np.concatenate([[-np.inf], dip])[got]
             above = np.concatenate([dip, [np.inf]])[got]
             assert (below <= keys).all() and (keys < above).all()
+
+
+# -- B4: the guide table ------------------------------------------------------
+
+_F32_MAX = np.float32(np.finfo(np.float32).max)
+
+
+def _guide_scale(cs, K):
+    """``guide_scale``: K / cs[N-1] in float32, or 0 (a constant bucket
+    function) where that is not a positive finite float."""
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        s = np.float32(K) / np.float32(cs[-1])
+    return s if 0 < s <= _F32_MAX else np.float32(0)
+
+
+def _guide_bucket(x, s, K):
+    """``guide_bucket``: clamp(floor(x s), 0, K - 1) of the float32 product,
+    0 where the product is not positive (NaN included)."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        v = np.asarray(x, dtype=np.float32) * np.float32(s)
+    b = np.zeros(v.shape, dtype=np.int64)
+    pos = v > 0
+    b[pos] = np.minimum(np.floor(v[pos].astype(np.float64)), K - 1)
+    return b
+
+
+def _lower_bound(lo, hi, below):
+    """Binary searches, vectorised: for each query the first p in [lo, hi)
+    with ``below(p, queries)`` False (hi if none)."""
+    lo, hi = lo.astype(np.int64), hi.astype(np.int64)
+    while True:
+        act = lo < hi
+        if not act.any():
+            return lo
+        mid = (lo + hi) >> 1
+        go = np.zeros(len(lo), dtype=bool)
+        go[act] = below(mid[act], act)
+        lo = np.where(act & go, mid + 1, lo)
+        hi = np.where(act & ~go, mid, hi)
+
+
+def _guide_threshold(b, s):
+    """``guide_threshold``, vectorised: the least float32 t with RN(t s) >=
+    b, from b / s by ulp steps (for b in [1, K - 1] and s > 0 that is the
+    least t with f(t) >= b)."""
+    s = np.float32(s)
+    fb = np.asarray(b).astype(np.float32)
+    with np.errstate(over="ignore"):
+        t = fb / s
+        down = t * s >= fb
+        while True:                          # down while the next is >= b
+            d = np.nextafter(t, np.float32(-np.inf))
+            m = down & (d * s >= fb)
+            if not m.any():
+                break
+            t[m] = d[m]
+        up = ~down
+        while up.any():                      # up until t s >= b
+            t[up] = np.nextafter(t[up], np.float32(np.inf))
+            up &= ~(t * s >= fb)
+    return t
+
+
+def _count_below(cs, t, R):
+    """``count_below<R>``, vectorised: #{i: cs_i < t} by a branch-free
+    search in radix R (the count grows by each power of R, largest first,
+    by as many steps as the R - 1 probes above it find entries < t)."""
+    N = len(cs)
+    step = 1
+    while step * R <= N:
+        step *= R
+    pos = np.zeros(len(t), dtype=np.int64)
+    while step:
+        c = np.zeros(len(t), dtype=np.int64)
+        for j in range(1, R):
+            p = pos + step * j
+            ok = p <= N
+            ok[ok] = cs[p[ok] - 1] < t[ok]
+            c += ok
+        pos += step * c
+        step //= R
+    return pos
+
+
+def _guide_count(cs, b, s, K, R):
+    """``guide_count<R>``: G[b] = #{i: f(cs_i) < b}, 0 for b = 0, N for b >=
+    K or s = 0, else the count of cs below the bucket's threshold."""
+    N = len(cs)
+    b = np.asarray(b, dtype=np.int64)
+    g = np.where(b == 0, 0, N).astype(np.int64)
+    inner = (b >= 1) & (b < K) & (s != 0)
+    g[inner] = _count_below(cs, _guide_threshold(b[inner], s), R)
+    return g
+
+
+def _guide_build(cs, K, s, lanes, R):
+    """``k_guide_build``: entries (K, 4), {G[b], G[b+1], cs[G[b]],
+    cs[G[b]+1]} (cs as float32, its indices clamped to N - 1).  Warp w of
+    ``lanes`` lanes owns the buckets [(lanes - 1) w, (lanes - 1) (w + 1)):
+    each lane counts G of its bucket in radix ``R``, and every lane but the
+    last writes its entry with G[b + 1] from the next lane."""
+    N = len(cs)
+    per = lanes - 1
+    b = np.arange(-(-K // per))[:, None] * per + np.arange(lanes)
+    g = _guide_count(cs, b.reshape(-1), s, K, R).reshape(b.shape)
+    keys = _guide_bucket(cs, s, K)               # G by its definition
+    np.testing.assert_array_equal(
+        g, np.searchsorted(keys, np.minimum(b, K), side="left"))
+    g1 = g[:, 1:]                                # the next lane's
+    b, g = b[:, :-1], g[:, :-1]
+    ok = b < K
+    g, g1 = g[ok], g1[ok]
+    E = np.stack([g, g1, cs[np.minimum(g, N - 1)],
+                  cs[np.minimum(g + 1, N - 1)]], axis=1).astype(np.float64)
+    assert len(E) == K and (b[ok] == np.arange(K)).all()
+    return E
+
+
+def _guide_serve(su, cs, E, s, K):
+    """``k_serve_guide``: from the entry of f(u), lo if the range is empty
+    or cs[lo] >= u, lo + 1 if it holds one or cs[lo + 1] >= u, else the
+    search of cs[lo + 2, hi); clipped to N - 1.  Also the ranges' sizes."""
+    su = np.asarray(su, dtype=np.float32)
+    e = E[_guide_bucket(su, s, K)]
+    lo, hi = e[:, 0].astype(np.int64), e[:, 1].astype(np.int64)
+    c0, c1 = e[:, 2].astype(np.float32), e[:, 3].astype(np.float32)
+    first = (lo == hi) | ~(c0 < su)
+    second = ~first & ((hi - lo == 1) | ~(c1 < su))
+    rest = ~first & ~second
+    A = np.where(first, lo, lo + 1)
+    ur = su[rest]
+    A[rest] = _lower_bound(lo[rest] + 2, hi[rest],
+                           lambda mid, act: cs[mid] < ur[act])
+    return np.minimum(A, len(cs) - 1), hi - lo
+
+
+def _guide_ancestors(su, cs, K, lanes=32, R=4):
+    """The two launches of ``pt_repeat_by_su``, warps of ``lanes`` lanes
+    and counts in radix ``R`` (32 and 4 on the card): (A, ranges' sizes,
+    E)."""
+    s = _guide_scale(cs, K)
+    E = _guide_build(cs, K, s, lanes, R)
+    G = np.append(E[:, 0], E[-1, 1]).astype(np.int64)
+    assert G[0] == 0 and G[K] == len(cs) and (np.diff(G) >= 0).all()
+    assert (E[:-1, 1] == E[1:, 0]).all()         # hi of b is lo of b + 1
+    A, width = _guide_serve(su, cs, E, s, K)
+    return A, width, E
+
+
+def _guide_case(kind, N, rng):
+    """(su, cs) of one case: ``cs`` (N,) float32 nondecreasing."""
+    def cdf(w):
+        return np.cumsum(w / w.sum()).astype(np.float32)
+
+    cs = cdf(rng.dirichlet(np.ones(N)))
+    M = {"M1": 1, "M_half_plus_1": N // 2 + 1, "M_4N": 4 * N}.get(kind, N)
+    su = rng.uniform(size=M).astype(np.float32)
+    if kind == "dirichlet0.05":
+        cs = cdf(rng.dirichlet(np.full(N, 0.05)))
+    elif kind in ("all_on_first", "all_on_middle", "all_on_last"):
+        w = np.zeros(N)
+        w[{"all_on_first": 0, "all_on_middle": N // 2,
+           "all_on_last": N - 1}[kind]] = 1.0
+        cs = cdf(w)
+    elif kind == "zero_runs":             # ties in cs
+        w = rng.uniform(size=N) * (rng.uniform(size=N) < 0.2)
+        w[N // 2] = 1.0
+        cs = cdf(w)
+    elif kind == "su_on_cs":              # queries equal to cs values
+        su = rng.choice(cs, M)
+    elif kind == "su_edges":              # 0, an ulp below the top, the
+        edges = np.array([0.0, np.nextafter(cs[-1], np.float32(0)), cs[-1],
+                          -0.5, -np.inf, 1.5, np.inf], dtype=np.float32)
+        su = np.concatenate([edges, su])[:max(M, len(edges))]
+    elif kind == "integer_cs":            # the JAX package's take_sorted
+        cs = np.cumsum(rng.multinomial(N, np.full(N, 1.0 / N))).astype(
+            np.float32)
+        su = rng.permutation(N).astype(np.float32) + np.float32(0.5)
+    elif kind == "cs_top_zero":           # cs[-1] = 0: f is constant
+        cs = np.sort(-rng.uniform(size=N)).astype(np.float32)
+        cs[-1] = 0.0
+        su = rng.uniform(-1.0, 1.0, size=M).astype(np.float32)
+    elif kind == "cs_negative":
+        cs = np.sort(-1.0 - rng.uniform(size=N)).astype(np.float32)
+        su = rng.uniform(-2.5, 0.5, size=M).astype(np.float32)
+    elif kind == "cs_tiny":               # K / cs[-1] overflows: s = 0
+        cs = (cs * np.float32(1e-38)).astype(np.float32)
+        su = (su * np.float32(1e-38)).astype(np.float32)
+    elif kind == "cs_huge":
+        cs = (cs * np.float32(1e30)).astype(np.float32)
+        su = (su * np.float32(1e30)).astype(np.float32)
+    elif kind == "cs_top_inf":            # s = 0 and inf * 0 = NaN
+        cs[-1] = np.inf
+        su[:1] = np.inf
+    return su.astype(np.float32), cs
+
+
+B4_KINDS = ["dirichlet1", "dirichlet0.05", "all_on_first", "all_on_middle",
+            "all_on_last", "zero_runs", "su_on_cs", "su_edges", "integer_cs",
+            "cs_top_zero", "cs_negative", "cs_tiny", "cs_huge", "cs_top_inf",
+            "M1", "M_half_plus_1", "M_4N"]
+# N: one, seven, and one that is no power of two nor a multiple of a block
+B4_SIZES = [1, 7, 4093]
+# (K, lanes of a warp of the build, radix of its counts): the card's, and
+# others
+B4_GEOMETRIES = ["card", "K1", "K2N_lanes3_R2", "K_eighth_lanes2_R3"]
+
+
+def _guide_geometry(which, N):
+    K = {"card": ops.guide_buckets(N), "K1": 1,
+         "K2N_lanes3_R2": 1 << N.bit_length(),
+         "K_eighth_lanes2_R3": max(1, (1 << N.bit_length()) // 16)}[which]
+    lanes, R = {"K2N_lanes3_R2": (3, 2),
+                "K_eighth_lanes2_R3": (2, 3)}.get(which, (32, 4))
+    return K, lanes, R
+
+
+@pytest.mark.parametrize("geometry", B4_GEOMETRIES)
+@pytest.mark.parametrize("N", B4_SIZES)
+@pytest.mark.parametrize("kind", B4_KINDS)
+def test_guide_model_matches_plain(kind, N, geometry):
+    rng = np.random.default_rng(len(kind) * 31 + N)
+    su, cs = _guide_case(kind, N, rng)
+    K, lanes, R = _guide_geometry(geometry, N)
+    A, width, _ = _guide_ancestors(su, cs, K, lanes, R)
+    ref = np.minimum(np.searchsorted(cs, su, side="left"), N - 1)
+    np.testing.assert_array_equal(A, ref)
+    (y,), A_plain = ops.repeat_cols_su_plain(
+        torch.from_numpy(su), torch.from_numpy(cs), len(su),
+        [torch.arange(N)], want_anc=True)
+    np.testing.assert_array_equal(A, A_plain.numpy())
+    np.testing.assert_array_equal(y.numpy(), ref)
+    if geometry == "card" and N > 1000:   # what the table is for
+        if kind == "dirichlet1":
+            assert width.mean() <= 2.0 * N / K
+        elif kind.startswith("all_on"):
+            assert (width == 0).mean() > 0.99
+
+
+@pytest.mark.parametrize("kind", ["dirichlet1", "all_on_middle",
+                                  "integer_cs", "su_on_cs"])
+def test_guide_model_at_the_card_size(kind):
+    """N = 2^20 - 513 and, on Dirichlet(1), M = 4N, at the card's K."""
+    N = 2 ** 20 - 513
+    su, cs = _guide_case(kind, N, np.random.default_rng(3))
+    if kind == "dirichlet1":
+        su = np.random.default_rng(4).uniform(size=4 * N).astype(np.float32)
+    K = ops.guide_buckets(N)
+    A, width, _ = _guide_ancestors(su, cs, K)
+    np.testing.assert_array_equal(
+        A, np.minimum(np.searchsorted(cs, su, side="left"), N - 1))
+    if kind == "dirichlet1":
+        assert width.mean() <= 2.0 * N / K
+
+
+@pytest.mark.parametrize("K", [2, 1024, 2 ** 18, 2 ** 24])
+def test_guide_threshold_model(K):
+    """The threshold of every bucket b in [1, K - 1] is the least float t
+    with f(t) >= b, at scales from tiny to huge: f(t) >= b and f of the
+    float below t is < b."""
+    rng = np.random.default_rng(K)
+    b = np.unique(np.concatenate([[1, K - 1], rng.integers(1, K, 500)]))
+    b = b[(b >= 1) & (b < K)]
+    for top in (1.0, 3.0, 1e-30, 7e30, 0.1, np.float32(K) / 3):
+        s = _guide_scale(np.array([top], dtype=np.float32), K)
+        t = _guide_threshold(b, s)
+        below = np.nextafter(t, np.float32(-np.inf))
+        assert (_guide_bucket(t, s, K) >= b).all()
+        assert (_guide_bucket(below, s, K) < b).all()
+
+
+@pytest.mark.parametrize("R", [2, 3, 4, 8])
+def test_count_below_model(R):
+    """``count_below<R>`` on sorted cs with runs and ties, at every N up to
+    a few powers of R, gives searchsorted's count of entries below t."""
+    rng = np.random.default_rng(R)
+    for N in (1, 2, 3, 4, 5, 15, 16, 17, 63, 64, 65, 1000):
+        cs = np.sort(rng.integers(0, N // 2 + 2, N)).astype(np.float32)
+        t = np.arange(-1, N // 2 + 3, 0.5).astype(np.float32)
+        np.testing.assert_array_equal(_count_below(cs, t, R),
+                                      np.searchsorted(cs, t, side="left"))
+
+
+def test_guide_bucket_is_monotone_and_constant_on_a_bad_scale():
+    """f is nondecreasing in x for every scale the card can store, and
+    constant (0) for s = 0, on infinities and signed zeros too."""
+    x = np.sort(np.concatenate([
+        np.array([-np.inf, -1e30, -1.0, -0.0, 0.0, 1e-45, 1e-38, 0.5, 1.0,
+                  1e30, np.inf], dtype=np.float32),
+        np.random.default_rng(0).uniform(-2, 2, 1000).astype(np.float32)]))
+    for K in (1, 2, 2 ** 18, 2 ** 24):
+        for s in (np.float32(0), np.float32(1e-30), np.float32(1.0),
+                  np.float32(K), np.float32(3e38)):
+            b = _guide_bucket(x, s, K)
+            assert (np.diff(b) >= 0).all() and b.min() >= 0
+            assert b.max() <= K - 1
+        assert (_guide_bucket(x, np.float32(0), K) == 0).all()
+    for top in (0.0, -1.0, 1e-40, np.inf, np.nan):
+        assert _guide_scale(np.array([top], dtype=np.float32), 1024) == 0
+
+
+@pytest.mark.parametrize("N", [1, 2, 3, 7, 8, 9, 4093, 2 ** 20 - 513, 2 ** 20,
+                               2 ** 20 + 1, 2 ** 31 - 1])
+def test_guide_buckets_are_a_power_of_two_near_n(N):
+    """K: a power of two in [1, 2^24] (every bucket index an exact
+    float32), N / 2^GUIDE_SHIFT rounded up to one."""
+    K = ops.guide_buckets(N)
+    assert 1 <= K <= 2 ** 24 and K & (K - 1) == 0
+    top = 1 << (N - 1).bit_length()        # the least power of two >= N
+    assert K == min(max(top >> ops.GUIDE_SHIFT, 1), 2 ** 24)

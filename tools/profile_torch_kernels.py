@@ -13,9 +13,9 @@ parent commit's, unpacked with ``git archive``) with this script, so that
 two versions are compared on one card in one call, in turns.
 
 1. Each kernel at N = 2^20 on ``chip_smoke.py`` phase 10's inputs (B2 also
-   as the filter calls it, one f32 column, and B5 also on the CDF of
-   degenerate weights), and the PyTorch call that computes the same
-   function where there is one: ms a call back to back (``chip_smoke.py``'s
+   as the filter calls it, one f32 column, B4 also on sorted uniforms, and
+   B4 and B5 also on the CDF of degenerate weights), and the PyTorch call
+   that computes the same function where there is one: ms a call back to back (``chip_smoke.py``'s
    CUDA-event timer, median of 25 batches of 10 calls), device ms a call
    and CUDA kernels a call, from a ``torch.profiler`` window of 20 calls,
    and host us a call, the time to enqueue 100 calls back to back (fewer
@@ -111,6 +111,8 @@ def main():
             lambda: ops.repeat_cols(z_deg, N, [x]),
         "normalised_cumsum": lambda: ops.normalised_cumsum_exact(W),
         "repeat_by_su": lambda: ops.ancestors_by_su(uu, cs1),
+        "repeat_by_su_sorted": lambda: ops.ancestors_by_su(su, cs1),
+        "repeat_by_su_degenerate": lambda: ops.ancestors_by_su(uu, cs_deg),
         "merge_rank_counts": lambda: ops.merge_rank_counts(su, cs, N),
         "merge_rank_counts_degenerate":
             lambda: ops.merge_rank_counts(su, cs_deg, N),
@@ -119,6 +121,10 @@ def main():
             lambda: torch.searchsorted(z, j, right=True),
         "library:cumsum(W)": lambda: torch.cumsum(W, 0),
         "library:searchsorted(cs, u)": lambda: torch.searchsorted(cs1, uu),
+        "library:searchsorted(cs, u_sorted)":
+            lambda: torch.searchsorted(cs1, su),
+        "library:searchsorted(cs_degenerate, u)":
+            lambda: torch.searchsorted(cs_deg, uu),
         "library:searchsorted(su, cs, right=True)":
             lambda: torch.searchsorted(su, cs, right=True),
         "library:searchsorted(su, cs_degenerate, right=True)":
