@@ -19,7 +19,17 @@ not 0 and no result line is printed.  It exits with an error at once when
    Tolerance: z nondecreasing, ``z[-1] == M``, ``0 <= z <= M``, and
    ``|z - plain| <= 1``, ``|z - oracle| <= 1`` elementwise (the float sum
    S is taken in another order; the fixed-point cumsum keeps z within one
-   of the exact answer).
+   of the exact answer).  On weights k_i 2^-24 (k_i < 256: S exact in
+   double in any order) at N = 2^20 and 2^24, M = N and 4N, z equals the
+   plain version bit for bit.  Then, with each u, strained cases: N one
+   past a tile, one past the largest one-tile chunk, one past what shared
+   memory holds, and 2^24; all weight on one particle (first, middle,
+   last), weights mostly zero and S = 4e-30 at N = 2^20; M = 4N at
+   N = 2^20 - 513 and 2^24 and on degenerate weights.  Above N = 2^20 and at M = 4N the
+   fixed-point grid (2^-30 of the total a weight) puts the function itself
+   more than 1 from float64, so there z is held within 1 of the plain
+   version and no further from the oracle than the plain version is, plus
+   1.
 3. Kernel B2 (resampling move) against its plain version, exact: f32, f64,
    int32 >= 2^24, int64, int8, (N, 2) f32 and (N, 3) f16 payloads, the
    fused form with ancestors, ancestors alone, more payloads than one
@@ -39,7 +49,8 @@ not 0 and no result line is printed.  It exits with an error at once when
    holds, and 2^24, and at N = 2^20 on all weight on one particle
    (first, middle, last), weights that are mostly zero, and a sum S just
    above 2^30 / FLT_MAX (the least S with a finite scale): nondecreasing,
-   ``|cs[-1] - 1| < 1e-6``, within N 2^-31 + 1e-6 of both.
+   ``|cs[-1] - 1| < 1e-6``, within N 2^-31 + 1e-6 of both; and bit for bit
+   equal to the plain version on phase 2's exact-sum weights.
 6. Kernel B5 (sorted-merge rank count) against its plain version, exact:
    sorted uniforms, uniforms tied with cs values, L = 2N + 1 and L = N/2 + 1
    uniforms; then, at N = 2^20 - 513 (not a multiple of a block's tile),
@@ -56,7 +67,9 @@ not 0 and no result line is printed.  It exits with an error at once when
    negative and past the top, an integer cs served at idx + 0.5, cs[-1] =
    0 (a constant bucket function) and M = 4N.
 8. Kernel B6 (running max) against ``torch.cummax``, exact: int32 over
-   the whole range (negative values) at every N.
+   the whole range (negative values) at phase 2's N and its chunk-edge
+   sizes and 2^24, and above N = 1000 also all INT_MIN and a descending
+   input.
 9. Every resampling scheme: ``multiSMC(fk, N=2^20, resampling=[six
    schemes], nruns=1)`` for T=1000 with numpy data and no device (so the
    port's default puts it on the card), after a warm-up at T=20.  Each
@@ -70,8 +83,8 @@ not 0 and no result line is printed.  It exits with an error at once when
     the same function where there is one, and the bound; each kernel's and
     library call's device time (``device_ms``: the sum of its CUDA
     kernels' time in a ``torch.profiler`` window of 20 calls, per call) and
-    CUDA kernels per call (``launches_per_call``: 1 for B2, B3 and B5, 2
-    for B4); B2, B4 and B5 also on the degenerate weights the filter gives
+    CUDA kernels per call (``launches_per_call``: 1 for B1, B2, B3, B5 and
+    B6, 2 for B4); B2, B4 and B5 also on the degenerate weights the filter gives
     them, B4 also on sorted uniforms; then the kernels line and the result
     line.
 """
@@ -304,11 +317,87 @@ def main():
         n_cases += 1
         if (wkind == "dirichlet0.05" and u == 0.37) or M != N:
             zs[(N, M)] = z
+    # strained cases: the chunk edges of the one-launch geometry, 2^24 (W
+    # read again from global memory), all weight on one particle, weights
+    # mostly zero, S just above the overflow edge of scale, and M = 4N.
+    # The fixed-point grid (2^-30 of the total a weight) is the function's
+    # own error, and it passes 1 against float64 above N = 2^20 and at
+    # M = 4N: there the kernel is held within 1 of the plain version and
+    # no further from float64 than the plain version is, plus 1.
+    tile, cache_tiles, max_grid = ops.systematic_z_geometry(dev)
+    strained = [(f"N={N}", _dirichlet_like(rng, "dirichlet1", N), N)
+                for N in (tile + 1, max_grid * tile + 1,
+                          max_grid * cache_tiles * tile + 1, 2 ** 24)]
+    for k in (0, N_MAIN // 2, N_MAIN - 1):
+        W_np = np.zeros(N_MAIN, dtype=np.float32)
+        W_np[k] = 1.0
+        strained.append((f"all weight on particle {k}", W_np, N_MAIN))
+    W_np = np.zeros(N_MAIN, dtype=np.float32)
+    W_np[rng.choice(N_MAIN, 5, replace=False)] = rng.random(5)
+    strained.append(("mostly zero", W_np, N_MAIN))
+    strained.append(("S = 4e-30", (_dirichlet_like(rng, "dirichlet1", N_MAIN)
+                                   * np.float32(4e-30)).astype(np.float32),
+                     N_MAIN))
+    for N, wkind in ((N_MAIN - 513, "dirichlet1"), (N_MAIN, "degenerate"),
+                     (2 ** 24, "dirichlet1")):
+        strained.append((f"M=4N N={N} {wkind}", _dirichlet_like(rng, wkind, N),
+                         4 * N))
+    # W_i = k_i 2^-24 (k_i < 256): S is exact in double in any order, so
+    # the kernel's S, q and Q are the plain version's and z is bit-exact
+    n_exact = 0
+    for N in (N_MAIN, 2 ** 24):
+        k = rng.integers(0, 256, N)
+        k[-1] += 1
+        W = torch.from_numpy((k * 2.0 ** -24).astype(np.float32)).to(dev)
+        for M in (N, 4 * N):
+            for u in us:
+                ut = torch.tensor(u, dtype=torch.float32, device=dev)
+                _check(torch.equal(ops.systematic_z_fused(W, ut, M),
+                                   ops.systematic_z_plain(W, ut, M)),
+                       f"B1 exact sum N={N} M={M} u={u}: differs from plain")
+                n_exact += 1
+    err_plain_oracle = 0
+    for name, W_np, M in strained:
+        N = len(W_np)
+        W = torch.from_numpy(W_np).to(dev)
+        for u in us:
+            ut = torch.tensor(u, dtype=torch.float32, device=dev)
+            z = ops.systematic_z_fused(W, ut, M)
+            zp = ops.systematic_z_plain(W, ut, M)
+            torch.cuda.synchronize()
+            zc = z.cpu().numpy().astype(np.int64)
+            zpc = zp.cpu().numpy().astype(np.int64)
+            zo = _oracle_z(W_np, u, M)
+            tag = f"B1 {name} M={M} u={u}"
+            _check(z.dtype == torch.int32 and zc.shape == (N,),
+                   f"{tag}: shape")
+            _check(bool(np.all(np.diff(zc) >= 0)),
+                   f"{tag}: not nondecreasing")
+            _check(zc[-1] == M and zc.min() >= 0 and zc.max() <= M,
+                   f"{tag}: range")
+            dp = int(np.abs(zc - zpc).max())
+            do = int(np.abs(zc - zo).max())
+            dpo = int(np.abs(zpc - zo).max())
+            _check(dp <= 1, f"{tag}: |z - plain| = {dp} > 1")
+            _check(do <= max(1, dpo + 1), f"{tag}: |z - oracle| = {do}, "
+                                          f"|plain - oracle| = {dpo}")
+            err_plain = max(err_plain, dp)
+            err_oracle = max(err_oracle, do)
+            err_plain_oracle = max(err_plain_oracle, dpo)
+            n_differ += int(np.count_nonzero(zc != zpc))
+            n_cases += 1
     _emit({"phase": 2, "kernel": "systematic_z", "cases": n_cases,
+           "strained_cases": len(strained) * len(us),
+           "bit_exact_cases": n_exact,
+           "geometry": {"tile": tile, "cache_tiles": cache_tiles,
+                        "max_grid": max_grid},
            "max_abs_err_vs_plain": err_plain,
            "max_abs_err_vs_float64": err_oracle,
+           "plain_max_abs_err_vs_float64": err_plain_oracle,
            "elements_differing_from_plain": n_differ,
-           "tolerance": "|dz| <= 1 elementwise"})
+           "tolerance": "nondecreasing, z[-1] == M, |dz| <= 1 vs plain "
+                        "(equal where S is exact); |dz| <= 1 vs float64 at "
+                        "N <= 2^20, M <= N, else <= |plain - float64| + 1"})
 
     # -- 3. B2 against its plain version, exact -----------------------------
     b2_err = 0.0
@@ -447,6 +536,14 @@ def main():
     # the least S for which 2^30 / S is a finite f32 is about 3.2e-30
     check_b3("B3 S = 4e-30", (_dirichlet_like(rng, "dirichlet1", N_MAIN)
                               * np.float32(4e-30)).astype(np.float32))
+    for N in (N_MAIN, 2 ** 24):      # S exact in double: cs bit-exact
+        k = rng.integers(0, 256, N)
+        k[-1] += 1
+        W = torch.from_numpy((k * 2.0 ** -24).astype(np.float32)).to(dev)
+        _check(torch.equal(ops.normalised_cumsum_exact(W),
+                           ops.normalised_cumsum_plain(W)),
+               f"B3 exact sum N={N}: differs from plain")
+        n_cases += 1
     _emit({"phase": 5, "kernel": "normalised_cumsum", "cases": n_cases,
            "geometry": {"tile": tile, "cache_tiles": cache_tiles,
                         "max_grid": max_grid},
@@ -585,15 +682,29 @@ def main():
            "tolerance": "exact"})
 
     # -- 8. B6 against torch.cummax, exact -----------------------------------
-    for N in Ns:
-        z = torch.randint(-2 ** 31, 2 ** 31 - 1, (N,), device=dev,
-                          dtype=torch.int32)
-        zmax = ops.running_max(z)
-        zmax_plain = ops.running_max_plain(z)
-        torch.cuda.synchronize()
-        _check(zmax.dtype == torch.int32 and torch.equal(zmax, zmax_plain),
-               f"B6 N={N}: differs from plain")
-    _emit({"phase": 8, "kernel": "running_max", "cases": len(Ns),
+    tile, cache_tiles, max_grid = ops.running_max_geometry(dev)
+    n_cases = 0
+    for N in Ns + [tile + 1, max_grid * tile + 1,
+                   max_grid * cache_tiles * tile + 1, 2 ** 24]:
+        inputs = [("whole range", torch.randint(
+            -2 ** 31, 2 ** 31 - 1, (N,), device=dev, dtype=torch.int32))]
+        if N > 1000:
+            inputs += [
+                ("all INT_MIN", torch.full((N,), -2 ** 31, device=dev,
+                                           dtype=torch.int32)),
+                ("descending", torch.linspace(
+                    2 ** 31 - 1, -2 ** 31, N, device=dev,
+                    dtype=torch.float64).to(torch.int32))]
+        for form, z in inputs:
+            zmax = ops.running_max(z)
+            zmax_plain = ops.running_max_plain(z)
+            torch.cuda.synchronize()
+            _check(zmax.dtype == torch.int32 and torch.equal(zmax, zmax_plain),
+                   f"B6 N={N} {form}: differs from plain")
+            n_cases += 1
+    _emit({"phase": 8, "kernel": "running_max", "cases": n_cases,
+           "geometry": {"tile": tile, "cache_tiles": cache_tiles,
+                        "max_grid": max_grid},
            "max_abs_err_vs_plain": 0, "tolerance": "exact"})
 
     # -- 9. every resampling scheme through multiSMC -------------------------
@@ -722,7 +833,8 @@ def main():
         source, replaces, err, path = meta[name]
         ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
         device_ms, per_call = _device_ms(torch, kern)
-        if name in ("normalised_cumsum", "repeat_by_z", "merge_rank_counts"):
+        if name in ("systematic_z", "normalised_cumsum", "repeat_by_z",
+                    "merge_rank_counts", "running_max"):
             _check(per_call == 1, f"{name}: {per_call} CUDA kernels a call")
         if name == "repeat_by_su":   # the guide table's build, the serve
             _check(per_call == 2, f"{name}: {per_call} CUDA kernels a call")

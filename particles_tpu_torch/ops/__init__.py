@@ -17,6 +17,7 @@ B6     ``running_max``               inclusive running max
 
 from particles_tpu_torch.ops.cummax_kernel import (  # noqa: F401
     running_max,
+    running_max_geometry,
     running_max_plain,
 )
 from particles_tpu_torch.ops.merge_rank_kernel import (  # noqa: F401
@@ -44,6 +45,7 @@ from particles_tpu_torch.ops.z_kernel import (  # noqa: F401
     normalised_cumsum_geometry,
     normalised_cumsum_plain,
     systematic_z_fused,
+    systematic_z_geometry,
     systematic_z_plain,
 )
 

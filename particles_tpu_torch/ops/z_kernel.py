@@ -24,13 +24,14 @@ within ``N * 2^-31 + 1e-6`` of the float64 CDF, with ``|cs[-1] - 1| <
 are nondecreasing by construction, for any N >= 1.
 
 On this card the kernels (``csrc/z_kernel.cu``) are bound by bytes, 8 a
-particle.  B1 is five launches that read W three times.  B3 is one
-persistent cooperative launch: each block keeps its chunk of W in shared
-memory across two grid-wide barriers (S, then the block sums of q), so W
-is read once and cs written once up to about 6.5M particles on an H100
-(:func:`normalised_cumsum_geometry`); above that a block reads its chunk
-again.  A refused cooperative launch raises.  The design, and how it
-differs from the TPU tiling, is in the source's header.
+particle.  Each is one persistent cooperative launch of the same kernel
+body, instantiated for its epilogue: each block keeps its chunk of W in
+shared memory across two grid-wide barriers (S, then the block sums of
+q), so W is read once and the output written once up to about 6.5M
+particles on an H100 (:func:`normalised_cumsum_geometry`,
+:func:`systematic_z_geometry`); above that a block reads its chunk again.
+A refused cooperative launch raises.  The design, and how it differs from
+the TPU tiling, is in the source's header.
 """
 
 from __future__ import annotations
@@ -40,36 +41,33 @@ import ctypes
 import torch
 
 from particles_tpu_torch import _build
-from particles_tpu_torch.ops._launch import on_device
+from particles_tpu_torch.ops._launch import coop_geometry, on_device
 
 __all__ = ["systematic_z_fused", "systematic_z_plain",
-           "normalised_cumsum_exact", "normalised_cumsum_plain",
-           "normalised_cumsum_geometry"]
+           "systematic_z_geometry", "normalised_cumsum_exact",
+           "normalised_cumsum_plain", "normalised_cumsum_geometry"]
 
 _SCALE = float(1 << 30)   # fixed-point grid
-# 8-byte words of scratch after B3's output for the kernel's partials (two
-# a block): a launch has at most 2048 blocks (an H100 takes 264)
+# 8-byte words of scratch after either kernel's output for its partials
+# (two a block): a launch has at most 2048 blocks (an H100 takes 264)
 _PARTIAL_WORDS = 4096
 
 _lib = None
-_z_tile = None   # B1's elements per streaming block, read once at load
 
 
 def _kernels():
-    global _lib, _z_tile
+    global _lib
     if _lib is None:
         lib = _build.load("z_kernel")
-        lib.pt_z_tile.argtypes = []
-        lib.pt_z_tile.restype = ctypes.c_int
-        _z_tile = lib.pt_z_tile()
         lib.pt_systematic_z.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_void_p]
         lib.pt_systematic_z.restype = ctypes.c_int
-        lib.pt_cs_geometry.argtypes = [
-            ctypes.c_longlong] + [ctypes.POINTER(ctypes.c_int)] * 3
-        lib.pt_cs_geometry.restype = ctypes.c_int
+        for query in (lib.pt_z_geometry, lib.pt_cs_geometry):
+            query.argtypes = [
+                ctypes.c_longlong] + [ctypes.POINTER(ctypes.c_int)] * 3
+            query.restype = ctypes.c_int
         lib.pt_normalised_cumsum.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
@@ -133,9 +131,9 @@ def systematic_z_fused(W, u, M):
     (N,) int32, nondecreasing, ``z[-1] == M``.
 
     A CPU tensor goes to :func:`systematic_z_plain`; a CUDA tensor to the
-    kernel, which raises if it cannot build or launch.  There ``z`` is a
-    view of the start of one allocation whose tail held the kernel's
-    scratch.  ``u`` may be a Python float or a one-element tensor; a device
+    kernel, one cooperative launch, which raises if it cannot build or
+    launch.  There ``z`` is a view of the start of one allocation whose
+    tail held the kernel's partials.  ``u`` may be a Python float or a one-element tensor; a device
     tensor is read by the kernel, with no host sync.
     """
     u = _check(W, u, M)
@@ -145,17 +143,15 @@ def systematic_z_fused(W, u, M):
         raise ValueError(f"systematic_z: no kernel for device {W.device}")
     lib = _kernels()
     N = W.shape[0]
-    nb = -(-N // _z_tile)
-    head = N + N % 2                 # the scratch starts 8-byte aligned
-    # z, then the block sums of W (f64) and of q (int64), then two f32
-    buf = torch.empty(head + 4 * nb + 2, dtype=torch.int32, device=W.device)
+    head = N + N % 2                 # the partials start 8-byte aligned
+    buf = torch.empty(head + 2 * _PARTIAL_WORDS, dtype=torch.int32,
+                      device=W.device)
     part = buf.data_ptr() + 4 * head
-    bq = part + 8 * nb
-    scal = bq + 8 * nb
 
     def launch(stream):
         return lib.pt_systematic_z(W.data_ptr(), N, M, u.data_ptr(),
-                                   buf.data_ptr(), part, bq, scal, stream)
+                                   buf.data_ptr(), part, _PARTIAL_WORDS,
+                                   stream)
 
     err = on_device(W.device, launch)
     if err != 0:
@@ -168,26 +164,22 @@ def systematic_z_fused(W, u, M):
 systematic_z_fused.launches = 0   # kernel launches, for tracing the path
 
 
+def systematic_z_geometry(device=None):
+    """B1's launch geometry on a CUDA device (default: the current one):
+    ``(tile, cache_tiles, max_grid)``, as
+    :func:`normalised_cumsum_geometry` describes it."""
+    return coop_geometry(_kernels().pt_z_geometry, _PARTIAL_WORDS, device,
+                         "systematic_z")
+
+
 def normalised_cumsum_geometry(device=None):
     """B3's launch geometry on a CUDA device (default: the current one):
     ``(tile, cache_tiles, max_grid)``.  A launch over N particles has
     ``G = ceil(N / chunk)`` blocks of ``chunk = tile * ceil(ceil(N /
     max_grid) / tile)`` particles each, kept in shared memory when
     ``chunk <= cache_tiles * tile``."""
-    lib = _kernels()
-    out = [ctypes.c_int() for _ in range(3)]
-
-    def query(stream):
-        return lib.pt_cs_geometry(_PARTIAL_WORDS,
-                                  *[ctypes.byref(v) for v in out])
-
-    device = torch.device("cuda", torch.cuda.current_device()
-                          if device is None else torch.device(device).index)
-    err = on_device(device, query)
-    if err != 0:
-        raise RuntimeError(f"normalised_cumsum: no cooperative launch on "
-                           f"this device: CUDA error {err}")
-    return tuple(v.value for v in out)
+    return coop_geometry(_kernels().pt_cs_geometry, _PARTIAL_WORDS, device,
+                         "normalised_cumsum")
 
 
 def normalised_cumsum_exact(W):

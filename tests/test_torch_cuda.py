@@ -18,8 +18,9 @@ from particles_tpu_torch import state_space_models as ssms
 from particles_tpu_torch.core import SMC, multiSMC
 from test_torch_kernel_models import (B2_KINDS, B3_KINDS, B4_KINDS,
                                       B5_DIP_KEYS, B5_GEOMETRIES, B5_KINDS,
-                                      _counts, _dip_case, _guide_ancestors,
-                                      _guide_case, _rank_blocks, _rank_case,
+                                      B6_KINDS, B6_SIZES, _counts, _dip_case,
+                                      _guide_ancestors, _guide_case, _ints,
+                                      _oracle_z, _rank_blocks, _rank_case,
                                       _weights)
 
 pytestmark = pytest.mark.cuda
@@ -164,30 +165,134 @@ def test_normalised_cumsum_kernel_beyond_shared_memory(dev):
     _check_cumsum(_weights_dirichlet(2 ** 24), dev)
 
 
-def test_normalised_cumsum_is_one_cooperative_launch(dev, monkeypatch):
-    """One CUDA kernel a call; a refused launch raises and counts nothing
-    (no fallback to the plain version)."""
+def _one_cooperative_launch(monkeypatch, mod, fn, wrapper, call):
+    """``call`` runs one CUDA kernel; with the library's ``fn`` refusing
+    the launch (720, cudaErrorCooperativeLaunchTooLarge), it raises and
+    counts nothing (no fallback to the plain version)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from particles_tpu_torch.ops import z_kernel
-
-    W = torch.from_numpy(_weights_dirichlet(2 ** 20, 1.0, 3)).to(dev)
-    ops.normalised_cumsum_exact(W)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
-            ops.normalised_cumsum_exact(W)
+            call()
         torch.cuda.synchronize()
     kernels = sum(e.count for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     assert kernels == 5
-    lib = z_kernel._kernels()
-    monkeypatch.setattr(lib, "pt_normalised_cumsum", lambda *a: 720)
-    before = ops.normalised_cumsum_exact.launches
+    monkeypatch.setattr(mod._kernels(), fn, lambda *a: 720)
+    before = wrapper.launches
     with pytest.raises(RuntimeError, match="error 720"):
-        ops.normalised_cumsum_exact(W)
-    assert ops.normalised_cumsum_exact.launches == before
+        call()
+    assert wrapper.launches == before
+
+
+def test_normalised_cumsum_is_one_cooperative_launch(dev, monkeypatch):
+    """One CUDA kernel a call; a refused launch raises and counts nothing
+    (no fallback to the plain version)."""
+    from particles_tpu_torch.ops import z_kernel
+
+    W = torch.from_numpy(_weights_dirichlet(2 ** 20, 1.0, 3)).to(dev)
+    _one_cooperative_launch(monkeypatch, z_kernel, "pt_normalised_cumsum",
+                            ops.normalised_cumsum_exact,
+                            lambda: ops.normalised_cumsum_exact(W))
+
+
+def test_systematic_z_is_one_cooperative_launch(dev, monkeypatch):
+    """B1 on B3's design: one CUDA kernel a call; a refused launch raises
+    and counts nothing."""
+    from particles_tpu_torch.ops import z_kernel
+
+    W = torch.from_numpy(_weights_dirichlet(2 ** 20, 1.0, 3)).to(dev)
+    u = torch.tensor(0.37, device=dev)
+    _one_cooperative_launch(monkeypatch, z_kernel, "pt_systematic_z",
+                            ops.systematic_z_fused,
+                            lambda: ops.systematic_z_fused(W, u, 2 ** 20))
+
+
+def test_running_max_is_one_cooperative_launch(dev, monkeypatch):
+    """B6 on the same skeleton with one grid barrier: one CUDA kernel a
+    call; a refused launch raises and counts nothing."""
+    from particles_tpu_torch.ops import cummax_kernel
+
+    z = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 ** 20,), device=dev,
+                      dtype=torch.int32)
+    _one_cooperative_launch(monkeypatch, cummax_kernel, "pt_running_max",
+                            ops.running_max, lambda: ops.running_max(z))
+
+
+def test_one_launch_scans_share_a_geometry(dev):
+    """B1, B3 and B6 cut their input alike (coop_chunks.cuh), so the
+    chunk-edge sizes of one are those of the others."""
+    g = ops.normalised_cumsum_geometry()
+    assert g == ops.systematic_z_geometry() == ops.running_max_geometry()
+    assert g[:2] == (4096, 6) and g[2] >= 1
+
+
+def _check_systematic_z(W_np, M, dev):
+    """Within 1 of the plain version (S is summed in another order), and
+    no further from the float64 oracle than the plain version is, plus 1:
+    the fixed-point grid (2^-30 of the total a weight) is the function's
+    own error, which passes 1 above N = 2^20 and at M = 4N; nondecreasing,
+    ``z[-1] == M``."""
+    N = len(W_np)
+    W = torch.from_numpy(W_np).to(dev)
+    for u in (0.0, 0.37, 0.999):
+        ut = torch.tensor(u, dtype=torch.float32, device=dev)
+        z = ops.systematic_z_fused(W, ut, M)
+        zp = ops.systematic_z_plain(W, ut, M)
+        torch.cuda.synchronize()
+        assert z.dtype == torch.int32 and z.shape == (N,)
+        zc = z.cpu().numpy().astype(np.int64)
+        zpc = zp.cpu().numpy().astype(np.int64)
+        zo = _oracle_z(W_np, np.float32(u), M)
+        assert np.abs(zc - zpc).max() <= 1
+        assert np.abs(zc - zo).max() <= max(1, np.abs(zpc - zo).max() + 1)
+        assert np.all(np.diff(zc) >= 0)
+        assert zc[-1] == M and zc.min() >= 0 and zc.max() <= M
+
+
+def _exact_sum_weights(N, seed):
+    """W_i = k_i 2^-24 with k_i < 256: every partial sum is a multiple of
+    2^-24 below 2^32, exact in double in any order."""
+    k = np.random.default_rng(seed).integers(0, 256, N)
+    k[-1] = 1 + k[-1]                       # S > 0
+    return (k * 2.0 ** -24).astype(np.float32)
+
+
+@pytest.mark.parametrize("N", [1, 4097, 2 ** 20 - 513, 2 ** 24])
+def test_fixed_point_kernels_are_exact_on_exact_sums(dev, N):
+    """Where S is summed exactly, S, scale, q and Q are the same bits in the
+    kernels as in the plain versions, so z (u in three values, M = N and
+    4N) and cs equal the plain versions bit for bit."""
+    W = torch.from_numpy(_exact_sum_weights(N, N)).to(dev)
+    assert torch.equal(ops.normalised_cumsum_exact(W),
+                       ops.normalised_cumsum_plain(W))
+    for M in (N, 4 * N):
+        for u in (0.0, 0.37, 0.999):
+            ut = torch.tensor(u, dtype=torch.float32, device=dev)
+            assert torch.equal(ops.systematic_z_fused(W, ut, M),
+                               ops.systematic_z_plain(W, ut, M))
+
+
+@pytest.mark.parametrize("M_of", ["N", "4N"])
+@pytest.mark.parametrize("kind", B3_KINDS)
+def test_systematic_z_kernel_edges(dev, kind, M_of):
+    """The CPU models' cases at the card's geometry: the edges of a tile,
+    of the one-tile chunks and of shared memory, and degenerate weights."""
+    tile, cache_tiles, max_grid = ops.systematic_z_geometry()
+    W_np = _weights(kind, (max_grid, tile, cache_tiles),
+                    np.random.default_rng(7))
+    _check_systematic_z(W_np, {"N": 1, "4N": 4}[M_of] * len(W_np), dev)
+
+
+@pytest.mark.parametrize("M_of", ["N", "4N"])
+def test_systematic_z_kernel_beyond_shared_memory(dev, M_of):
+    """N = 2^24: each block reads its chunk again in passes 2 and 3."""
+    N = 2 ** 24
+    _check_systematic_z(_weights_dirichlet(N), {"N": 1, "4N": 4}[M_of] * N,
+                        dev)
 
 
 def _cdf(W):
@@ -382,6 +487,28 @@ def test_running_max_kernel_matches_plain(dev, N):
     assert torch.equal(y, ops.running_max_plain(z))
     w = torch.randint(-5, 0, (N,), device=dev, dtype=torch.int32)
     assert torch.equal(ops.running_max(w), torch.cummax(w, 0).values)
+
+
+@pytest.mark.parametrize("size", B6_SIZES)
+@pytest.mark.parametrize("kind", B6_KINDS)
+def test_running_max_kernel_edges(dev, kind, size):
+    """The CPU model's cases at the card's geometry, exact: all INT_MIN,
+    the whole int32 range, descending, spikes on both sides of every chunk
+    boundary."""
+    tile, cache_tiles, max_grid = ops.running_max_geometry()
+    z_np = _ints(kind, size, (max_grid, tile, cache_tiles),
+                 np.random.default_rng(5))
+    z = torch.from_numpy(z_np).to(dev)
+    y = ops.running_max(z)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(y.cpu().numpy(), np.maximum.accumulate(z_np))
+
+
+def test_running_max_kernel_beyond_shared_memory(dev):
+    """N = 2^24: each block reads its chunk again in pass 2."""
+    z = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 ** 24,), device=dev,
+                      dtype=torch.int32)
+    assert torch.equal(ops.running_max(z), ops.running_max_plain(z))
 
 
 def test_bootstrap_filter_on_the_card(dev):

@@ -1,10 +1,11 @@
-"""Numpy models of how the port's CUDA kernels B2, B3, B4 and B5 cut up
-their work, held against the kernels' plain PyTorch versions on the CPU.
+"""Numpy models of how the port's CUDA kernels B1 to B6 cut up their
+work, held against the kernels' plain PyTorch versions on the CPU.
 
 A CUDA kernel cannot run here, so these models repeat, step by step, the
 index arithmetic of ``particles_tpu_torch/csrc/repeat_kernel.cu``
-(``warp_split``, ``k_merge_serve``), ``csrc/z_kernel.cu``
-(``pt_normalised_cumsum``, ``k_cs_coop``),
+(``warp_split``, ``k_merge_serve``), ``csrc/z_kernel.cu`` and
+``csrc/cummax_kernel.cu`` on ``csrc/coop_chunks.cuh`` (``coop_shape``,
+``k_fixed_point`` with its two epilogues, ``k_running_max``),
 ``csrc/merge_rank_kernel.cu`` (``warp_upper_bound``, ``window_counts``,
 ``k_merge_rank``) and B4's guide table in ``csrc/repeat_kernel.cu``
 (``guide_scale``, ``guide_bucket``, ``k_guide_build``, ``k_serve_guide``),
@@ -16,7 +17,11 @@ B2 is held exactly: the merge path gives ``A_j = #{k: z_k <= j}`` with
 every j served once.  B3 is held bit for bit wherever the model's f32 sum
 S equals the plain version's (everything after S is exact integer or
 IEEE-rounded f32 arithmetic), and always to B3's tolerance: nondecreasing,
-``|cs[-1] - 1| < 1e-6``, within ``N 2^-31 + 1e-6`` of float64.  B5 is held
+``|cs[-1] - 1| < 1e-6``, within ``N 2^-31 + 1e-6`` of float64.  B1, the
+same passes with the z epilogue, is held likewise: equal to the plain
+version where S is the same float, else within 1 of it and of float64,
+nondecreasing with ``z[-1] == M``; and within 1 of the JAX package's
+kernel.  B6 is held exactly against ``np.maximum.accumulate``.  B5 is held
 exactly on sorted uniforms, and on uniforms that dip to its other two
 contracts: z nondecreasing, every output written once, each a binary
 search's answer.  B4 is held exactly against ``np.searchsorted(cs, su,
@@ -171,10 +176,11 @@ def _cs_geometry(N, max_grid, tile, cache_tiles):
     return -(-N // chunk), chunk, chunk <= cache_tiles * tile
 
 
-def _chunked_cs(W, max_grid, tile, cache_tiles, threads):
-    """``k_cs_coop``: per-block partials of W (float64) and of q (int64),
-    S in a fixed order, each block's exclusive prefix, and the scan of
-    each tile, ``tile // threads`` consecutive elements a thread."""
+def _chunked_csq(W, max_grid, tile, cache_tiles, threads):
+    """``k_fixed_point``'s passes: per-block partials of W (float64) and of
+    q (int64), S in a fixed order, each block's exclusive prefix, and the
+    scan of each tile, ``tile // threads`` consecutive elements a thread.
+    Returns the inclusive csq (int64), Q and S, for either epilogue."""
     N = len(W)
     G, chunk, _ = _cs_geometry(N, max_grid, tile, cache_tiles)
     assert G <= max_grid and chunk % tile == 0
@@ -185,9 +191,7 @@ def _chunked_cs(W, max_grid, tile, cache_tiles, threads):
     S = np.float32(sum(part_s))
     scale = np.float32(2.0 ** 30) / max(S, np.float32(1e-37))
     part_q = [int(np.rint(w * scale).astype(np.int64).sum()) for w in blocks]
-    Q = sum(part_q)
-    inv = np.float32(1.0) / max(np.float32(Q), np.float32(1.0))
-    cs = np.empty(N, dtype=np.float32)
+    csq = np.empty(N, dtype=np.int64)
     for b, w in enumerate(blocks):
         carry = sum(part_q[:b])
         for base in range(0, len(w), tile):
@@ -197,14 +201,34 @@ def _chunked_cs(W, max_grid, tile, cache_tiles, threads):
             q = q.reshape(threads, items)
             mine = q.sum(axis=1)
             ex = np.cumsum(mine) - mine              # the block scan
-            csq = carry + ex[:, None] + np.cumsum(q, axis=1)
+            run = carry + ex[:, None] + np.cumsum(q, axis=1)
             carry += int(mine.sum())
-            out = (csq.reshape(-1).astype(np.float32) * inv).astype(
-                np.float32)
-            cs[b * chunk + base:b * chunk + base + len(part)] = \
-                out[:len(part)]
+            csq[b * chunk + base:b * chunk + base + len(part)] = \
+                run.reshape(-1)[:len(part)]
         assert carry == sum(part_q[:b + 1])
-    return cs, S
+    return csq, sum(part_q), S
+
+
+def _cs_epilogue(csq, Q):
+    """``CsOut``: cs = f32(csq) * (1 / max(Q, 1)), every stage in f32."""
+    inv = np.float32(1.0) / max(np.float32(Q), np.float32(1.0))
+    return (csq.astype(np.float32) * inv).astype(np.float32)
+
+
+def _z_epilogue(csq, Q, u, M):
+    """``ZOut``: z = clip(floor(f32(csq) * (M / max(Q, 1)) - u) + 1, 0, M),
+    z[-1] = M, every stage rounded to f32 (no fused multiply-subtract)."""
+    minv = np.float32(M) / max(np.float32(Q), np.float32(1.0))
+    f = (csq.astype(np.float32) * minv).astype(np.float32) - np.float32(u)
+    z = np.clip(np.floor(f.astype(np.float32)).astype(np.int64) + 1, 0, M)
+    z[-1] = M
+    return z
+
+
+def _chunked_cs(W, max_grid, tile, cache_tiles, threads):
+    """B3's kernel: the chunked passes, then the cs epilogue."""
+    csq, Q, S = _chunked_csq(W, max_grid, tile, cache_tiles, threads)
+    return _cs_epilogue(csq, Q), S
 
 
 def _weights(kind, geometry, rng):
@@ -268,6 +292,162 @@ def test_cumsum_geometry_covers_the_data(N):
     assert 1 <= G <= 264 and chunk % 4096 == 0
     assert (G - 1) * chunk < N <= G * chunk
     assert cached == (N <= 264 * 6 * 4096)
+
+
+# -- B1: the same passes, the z epilogue --------------------------------------
+
+
+def _oracle_z(W, u, M):
+    W64 = W.astype(np.float64)
+    cs = np.cumsum(W64) / W64.sum()
+    z = np.clip(np.floor(M * cs - np.float64(u)) + 1, 0, M).astype(np.int64)
+    z[-1] = M
+    return z
+
+
+def _check_z(z, plain, W, u, M, same_S):
+    """B1's contract: nondecreasing, in [0, M], ``z[-1] == M``; equal to
+    the plain version where S is the same float, else within 1 of it;
+    within 1 of the float64 oracle."""
+    if same_S:
+        np.testing.assert_array_equal(z, plain)
+    assert np.abs(z - plain).max() <= 1
+    assert np.abs(z - _oracle_z(W, u, M)).max() <= 1
+    assert np.all(np.diff(z) >= 0)
+    assert z[-1] == M and z.min() >= 0 and z.max() <= M
+
+
+@pytest.mark.parametrize("M_of", ["N", "501", "4N"])
+@pytest.mark.parametrize("geometry", B3_GEOMETRIES)
+@pytest.mark.parametrize("kind", B3_KINDS)
+def test_chunked_z_model_matches_plain(kind, geometry, M_of):
+    rng = np.random.default_rng(len(kind) + geometry[1])
+    W = _weights(kind, geometry[:3], rng)
+    N = len(W)
+    M = {"N": N, "501": 501, "4N": 4 * N}[M_of]
+    csq, Q, S = _chunked_csq(W, *geometry)
+    Wt = torch.from_numpy(W)
+    same_S = S == Wt.sum(dtype=torch.float64).to(torch.float32).item()
+    for u in (0.0, 0.37, 0.999):
+        u32 = np.float32(u)
+        z = _z_epilogue(csq, Q, u32, M)
+        plain = ops.systematic_z_plain(Wt, float(u32), M).numpy()
+        _check_z(z, plain.astype(np.int64), W, u32, M, same_S)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """Route the JAX package's Pallas kernels through interpret mode (JAX
+    is imported here, not at the top: the card's tests import this module
+    where there is no JAX)."""
+    from jax.experimental import pallas as pl
+
+    import particles_tpu.ops.z_kernel as zk
+
+    orig = pl.pallas_call
+
+    def patched(*a, **kw):
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+    monkeypatch.setattr(zk, "_on_tpu", lambda: True)
+    yield zk
+    zk._z_pallas.clear_cache()
+
+
+@pytest.mark.parametrize("geometry", [(264, 4096, 6, 512), (264, 64, 2, 8)])
+@pytest.mark.parametrize("N", [8192, 65536])
+def test_chunked_z_model_matches_jax_kernel(interpret, N, geometry):
+    """The chunked model of B1 against the JAX package's kernel: |dz| <= 1
+    (S is a float sum taken in another order)."""
+    import jax.numpy as jnp
+
+    zk = interpret
+    rng = np.random.default_rng(N + geometry[1])
+    W = rng.dirichlet(np.full(N, 0.3)).astype(np.float32)
+    csq, Q, _ = _chunked_csq(W, *geometry)
+    for u in (0.0, 0.37, 0.999):
+        u32 = np.float32(u)
+        zj = np.asarray(zk.systematic_z_fused(jnp.asarray(W), jnp.float32(u32),
+                                              N)).astype(np.int64)
+        z = _z_epilogue(csq, Q, u32, N)
+        assert np.abs(z - zj).max() <= 1
+        assert np.all(np.diff(z) >= 0) and z[-1] == zj[-1] == N
+
+
+# -- B6: one grid barrier, a max-scan --------------------------------------
+
+INT_MIN = np.iinfo(np.int32).min
+
+
+def _chunked_cummax(z, max_grid, tile, cache_tiles, threads):
+    """``k_running_max``: each block's maximum, the maximum of the blocks
+    before it, then the max-scan of each tile, ``tile // threads``
+    consecutive elements a thread, INT_MIN past the chunk's end."""
+    N = len(z)
+    G, chunk, _ = _cs_geometry(N, max_grid, tile, cache_tiles)
+    items = tile // threads
+    blocks = [z[b * chunk:(b + 1) * chunk] for b in range(G)]
+    part = [int(w.max()) for w in blocks]
+    y = np.empty(N, dtype=np.int32)
+    for b, w in enumerate(blocks):
+        carry = max(part[:b], default=INT_MIN)
+        for base in range(0, len(w), tile):
+            seg = w[base:base + tile]
+            v = np.full(tile, INT_MIN, dtype=np.int64)
+            v[:len(seg)] = seg
+            v = v.reshape(threads, items)
+            mine = v.max(axis=1)
+            ex = np.concatenate([[INT_MIN], np.maximum.accumulate(mine)[:-1]])
+            run = np.maximum(np.maximum(carry, ex)[:, None],
+                             np.maximum.accumulate(v, axis=1))
+            carry = max(carry, int(mine.max()))
+            y[b * chunk + base:b * chunk + base + len(seg)] = \
+                run.reshape(-1)[:len(seg)]
+        assert carry == max(part[:b + 1])
+    return y
+
+
+def _ints(kind, size, geometry, rng):
+    """B6's inputs: (N,) int32 of one kind at one of B3's chunk-edge
+    sizes."""
+    max_grid, tile, cache_tiles = geometry
+    N = {"N1": 1, "tile_plus_1": tile + 1,
+         "two_tile_chunks": max_grid * tile + 1,
+         "beyond_the_cache": max_grid * cache_tiles * tile + 1}[size]
+    if kind == "all_int_min":
+        return np.full(N, INT_MIN, dtype=np.int32)
+    if kind == "whole_range":
+        return rng.integers(INT_MIN, 2 ** 31, N, dtype=np.int64).astype(
+            np.int32)
+    if kind == "descending":
+        return np.linspace(2 ** 31 - 1, INT_MIN, N).astype(np.int64).clip(
+            INT_MIN, 2 ** 31 - 1).astype(np.int32)
+    # spikes, each above the last, on both sides of every chunk boundary
+    _, chunk, _ = _cs_geometry(N, max_grid, tile, cache_tiles)
+    z = rng.integers(-1000, 0, N, dtype=np.int64).astype(np.int32)
+    edges = sorted({i for c in range(chunk, N, chunk) for i in (c - 1, c)}
+                   | {0, N - 1})
+    z[edges] = np.arange(1, len(edges) + 1, dtype=np.int32) * 7
+    return z
+
+
+B6_KINDS = ["all_int_min", "whole_range", "descending",
+            "spikes_at_chunk_edges"]
+B6_SIZES = ["N1", "tile_plus_1", "two_tile_chunks", "beyond_the_cache"]
+
+
+@pytest.mark.parametrize("geometry", B3_GEOMETRIES)
+@pytest.mark.parametrize("size", B6_SIZES)
+@pytest.mark.parametrize("kind", B6_KINDS)
+def test_chunked_cummax_model_is_exact(kind, size, geometry):
+    rng = np.random.default_rng(len(kind) + len(size) + geometry[1])
+    z = _ints(kind, size, geometry[:3], rng)
+    y = _chunked_cummax(z, *geometry)
+    np.testing.assert_array_equal(y, np.maximum.accumulate(z))
+    np.testing.assert_array_equal(
+        y, ops.running_max_plain(torch.from_numpy(z)).numpy())
 
 
 # -- B5: block windows of su ------------------------------------------------

@@ -1,9 +1,9 @@
-// Times B3 (csrc/z_kernel.cu, k_cs_coop) on the card beside variants of
-// its block size and of its grid barrier (cooperative_groups' grid sync,
-// or a barrier on one counter with release/acquire atomics), and the floor
-// of an empty cooperative launch with 0 and 2 grid syncs.  Every variant's
-// output is compared with the kernel's, bit for bit.  Build and run with
-// run.sh.
+// Times B3 (csrc/z_kernel.cu, k_fixed_point<CsOut>) on the card beside
+// variants of its block size and of its grid barrier (cooperative_groups'
+// grid sync, or a barrier on one counter with release/acquire atomics),
+// and the floor of an empty cooperative launch with 0 and 2 grid syncs.
+// Every variant's output is compared with the kernel's, bit for bit.
+// Build and run with run.sh.
 #include "../../particles_tpu_torch/csrc/z_kernel.cu"
 #include "common.cuh"
 
@@ -27,7 +27,7 @@ template <int NT, int MINB, bool RA>
 __global__ void __launch_bounds__(NT, MINB)
 k_cs_t(const float* __restrict__ W, int64_t N, int64_t chunk, int cached,
        double* part_s, int64_t* part_q, float* __restrict__ cs, unsigned int* bar) {
-  constexpr int kI = kCsItems, kT = NT * kCsItems;
+  constexpr int kI = kItems, kT = NT * kItems;
   extern __shared__ float4 smem4[];
   float* cache = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
@@ -111,10 +111,10 @@ struct Variant {
     CK(cudaFuncSetAttribute((const void*)k_cs_t<NT, MINB, RA>, cudaFuncAttributeMaxDynamicSharedMemorySize, cache_bytes));
     CK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_cs_t<NT, MINB, RA>, NT, cache_bytes));
     gmax = per_sm * sms;
-    cache_tiles = cache_bytes / (NT * kCsItems * 4);
+    cache_tiles = cache_bytes / (NT * kItems * 4);
   }
   cudaError_t launch(const float* W, int64_t N, float* cs, int64_t* part, unsigned int* bar) {
-    const int tile = NT * kCsItems;
+    const int tile = NT * kItems;
     const int64_t per = (N + gmax - 1) / gmax;
     int64_t chunk = (per + tile - 1) / tile * tile;
     const int grid = (int)((N + chunk - 1) / chunk);

@@ -1,6 +1,7 @@
-// Shared by the variant timers: an error check, and the device time of one
-// launch in a saturated stream.
+// Shared by the variant timers: an error check, the device time of one
+// launch in a saturated stream, and the host time to enqueue one.
 #pragma once
+#include <chrono>
 #include <cstdio>
 #include <vector>
 #include <random>
@@ -33,4 +34,16 @@ float device_us(F launch, int reps = 100) {
   }
   CK(cudaGetLastError());
   return best * 1000.0f / reps;
+}
+
+// host time to enqueue one call: 100 calls back to back, no sync between
+// (fewer launches than the stream's queue holds)
+template <class F>
+double host_us(F launch) {
+  launch(); CK(cudaDeviceSynchronize());
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int r = 0; r < 100; ++r) launch();
+  const auto t1 = std::chrono::steady_clock::now();
+  CK(cudaDeviceSynchronize());
+  return std::chrono::duration<double, std::micro>(t1 - t0).count() / 100;
 }

@@ -1,7 +1,7 @@
 #!/bin/bash
-# Build the variant timers of B2, B3, B4 and B5 (or those named) with nvcc
-# and run them on the card:
-#   bash tools/kernel_variants/run.sh [b2] [b3] [b4] [b5]
+# Build the variant timers of B1 to B6 (or those named) with nvcc and run
+# them on the card:
+#   bash tools/kernel_variants/run.sh [b1] [b2] [b3] [b4] [b5] [b6]
 # Each prints one JSON line per size or input, device us a launch.
 set -e
 cd "$(dirname "$0")"
@@ -10,7 +10,7 @@ mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 flags="-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v"
 nvcc=$(command -v nvcc || echo /usr/local/cuda/bin/nvcc)
-names=${*:-b3 b2 b4 b5}
+names=${*:-b1 b2 b3 b4 b5 b6}
 pids=()
 for n in $names; do
   "$nvcc" $flags -o "$out/${n}_variants" "${n}_variants.cu" &

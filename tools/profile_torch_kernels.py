@@ -7,10 +7,18 @@ Run from the repository root::
 
     python3 tools/profile_torch_kernels.py
     PYTHONPATH=<another checkout> python3 tools/profile_torch_kernels.py
+    python3 tools/profile_torch_kernels.py --schemes systematic \
+        --kernels systematic_z,normalised_cumsum,running_max
 
 The second form measures another checkout's package (for example the
 parent commit's, unpacked with ``git archive``) with this script, so that
-two versions are compared on one card in one call, in turns.
+two versions are compared on one card in one call, in turns.  The third
+measures only the named calls of part 1 (a library call is named as it
+prints, ``library:cumsum(W)``) and the named schemes of part 2 (``none``
+skips a part).  ``--hashes`` first prints, for comparing two checkouts bit
+for bit, the sha256 of B1's z, B3's cs and B6's y on fixed inputs: N from
+1 to 2^24 (B3's chunk edges included), Dirichlet(1), Dirichlet(0.05),
+degenerate and one-hot weights, int32 over the whole range.
 
 1. Each kernel at N = 2^20 on ``chip_smoke.py`` phase 10's inputs (B2 also
    as the filter calls it, one f32 column, B4 also on sorted uniforms, and
@@ -31,6 +39,8 @@ Prints one JSON line per part, with the card's name and power limit and
 the measured package's path.
 """
 
+import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -67,7 +77,44 @@ def _host_us(torch, fn, calls=100):
     return 1e6 * (t1 - t0) / calls
 
 
+def _hashes(torch, ops, cs_mod, dev):
+    """sha256 (16 hex digits) of B1's z (u = 0.37, M = n), B3's cs and
+    B6's y, by size n and input."""
+    def digest(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    tile, cache_tiles, max_grid = ops.normalised_cumsum_geometry(dev)
+    rng = np.random.default_rng(1)
+    out = {}
+    for n in (1, 7, 1000, tile + 1, N - 513, N,
+              max_grid * tile + 1, max_grid * cache_tiles * tile + 1,
+              2 ** 24):
+        for kind in ("dirichlet1", "dirichlet0.05", "degenerate", "one_hot"):
+            if kind == "one_hot":
+                W_np = np.zeros(n, dtype=np.float32)
+                W_np[n // 2] = 1.0
+            else:
+                W_np = cs_mod._dirichlet_like(rng, kind, n)
+            W = torch.from_numpy(W_np).to(dev)
+            out[f"{n} {kind}"] = {
+                "B1": digest(ops.systematic_z_fused(W, 0.37, n)),
+                "B3": digest(ops.normalised_cumsum_exact(W))}
+        zi = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n).astype(
+            np.int32)).to(dev)
+        out[f"{n} int32"] = {"B6": digest(ops.running_max(zi))}
+    return out
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", help="comma-separated names of part 1's "
+                    "calls to measure (default: all)")
+    ap.add_argument("--schemes", help="comma-separated schemes of part 2 "
+                    f"(default: {','.join(SCHEMES)}; 'none' for none)")
+    ap.add_argument("--hashes", action="store_true",
+                    help="first print the hashes of B1's, B3's and B6's "
+                    "outputs on fixed inputs")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -87,6 +134,10 @@ def main():
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
 
+    if args.hashes:
+        print(json.dumps({"part": "hashes", **head,
+                          "hashes": _hashes(torch, ops, cs_mod, dev)}),
+              flush=True)
     W = torch.from_numpy(cs_mod._dirichlet_like(rng, "dirichlet1", N)).to(dev)
     W_deg = torch.from_numpy(
         cs_mod._dirichlet_like(rng, "degenerate", N)).to(dev)
@@ -120,6 +171,7 @@ def main():
         "library:searchsorted(z, j, right=True)":
             lambda: torch.searchsorted(z, j, right=True),
         "library:cumsum(W)": lambda: torch.cumsum(W, 0),
+        "library:cummax(z)": lambda: torch.cummax(zi, 0),
         "library:searchsorted(cs, u)": lambda: torch.searchsorted(cs1, uu),
         "library:searchsorted(cs, u_sorted)":
             lambda: torch.searchsorted(cs1, su),
@@ -130,6 +182,12 @@ def main():
         "library:searchsorted(su, cs_degenerate, right=True)":
             lambda: torch.searchsorted(su, cs_deg, right=True),
     }
+    if args.kernels:
+        keep = [k for k in args.kernels.split(",") if k != "none"]
+        unknown = set(keep) - set(calls)
+        if unknown:
+            sys.exit(f"profile_torch_kernels: unknown kernels {unknown}")
+        calls = {k: v for k, v in calls.items() if k in keep}
     kernels = {}
     for name, fn in calls.items():
         by_kernel, per_call = cs_mod._device_window(torch, fn, 20)
@@ -145,8 +203,10 @@ def main():
     fk = ssms.Bootstrap(ssm=kalman.LinearGauss(rho=cs_mod.RHO,
                                                sigmaX=cs_mod.SIGX,
                                                sigmaY=cs_mod.SIGY), data=y)
+    schemes = SCHEMES if args.schemes is None else [
+        s for s in args.schemes.split(",") if s != "none"]
     steps = {}
-    for scheme in SCHEMES:
+    for scheme in schemes:
         pf = SMC(fk=fk, N=N, resampling=scheme, seed=0)
         for _ in range(20):
             next(pf)
