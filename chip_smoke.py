@@ -85,8 +85,46 @@ not 0 and no result line is printed.  It exits with an error at once when
     kernels' time in a ``torch.profiler`` window of 20 calls, per call) and
     CUDA kernels per call (``launches_per_call``: 1 for B1, B2, B3, B5 and
     B6, 2 for B4); B2, B4 and B5 also on the degenerate weights the filter gives
-    them, B4 also on sorted uniforms; then the kernels line and the result
-    line.
+    them, B4 also on sorted uniforms.
+11. History and genealogy on the main path: N = 2^20, T = 1000,
+    ``store_history=16`` and ``collect=[Fixed_lag_smooth(lag=5),
+    Online_smooth_naive()]`` on the model with the additive function x_t.
+    logLt within 0.5 of Kalman; B1 and B2 launched once a resampling step
+    and no other kernel; one host sync a step (counted with
+    ``torch.cuda.set_sync_debug_mode("warn")``); every resampling step's
+    ancestors returned (by B2) and nondecreasing; the window's 16 frames
+    and its trajectories equal to a numpy recomposition of its ancestors;
+    the fixed-lag and on-line means within 5 sd of the exact targets
+    (``kalman_targets``; each smoother's sd from
+    ``tools/smoothing_error_scale.py``, ``SMOOTH_SD``).  ms a step of a
+    warm run beside phase 4's.
+12. Off-line smoothing at N = 2^17, T = 128 (``store_history=True``):
+    FFBS-MCMC (one step) and hybrid rejection FFBS (32 rounds, then the
+    exact kernel) at M = 2^17, two-filter O(N) at 2^17, FFBS O(N^2) and
+    two-filter O(N^2) at N = M = 2^13.  Each smoothed mean within 5 sd of
+    the Kalman smoother at every t; B3 launched once per set of weights
+    drawn from (its CDF: 1 + 127 a pass for MCMC and reject, 2 a time
+    step for two-filter O(N), 1 for FFBS O(N^2)) and B4 once per draw (1 +
+    the MCMC steps, or rounds), the O(N^2) two-filter none.  Then each
+    kernel on the phase's own inputs, with phases 2, 3, 5 and 7's
+    tolerances: B1 and B2 (with and without ancestors) on the forward
+    weights and particles at 2^17 and 2^13 (t = 0, 64, 126), B3 and B4 on
+    the same with M in {2N, N, N/2 + 1, 37, 1} (PaRIS's first round to a
+    last straggler), and on the information filter's weights.  ms a
+    backward step, launches, rounds and stragglers.
+13. On-line smoothing at T = 128: PaRIS (``Nparis=2``, 32 rounds) at N =
+    2^17 and ``Online_smooth_ON2`` at 2^13 within 5 sd of the exact
+    targets, PaRIS's B3 launched once a step and B4 once a round; ``Var``,
+    ``Var_logLt`` and ``Lag_based_var`` at 2^17 and 256 finite and >= 0,
+    and ``Var`` and ``Lag_based_var`` 0 wherever the genealogy has
+    coalesced (recomputed from the history; at N = 256 it must coalesce).
+    Each kernel on the phase's own inputs, as in phase 12: PaRIS's last
+    weights and particles (B1 to B4), ``Online_smooth_ON2``'s and the
+    variance estimators' (B1, B2).  ms a step with each collector beside
+    the filter alone, and PaRIS's rounds a step.
+
+Then the kernels line (with each kernel's launches on the smoothing path,
+``launches_smoothing``) and the result line.
 """
 
 import json
@@ -112,6 +150,30 @@ SCHEME_KERNELS = {
     "killing": {"normalised_cumsum", "repeat_by_su"},
 }
 T_IDIOTIC = 50
+# the smoothing path: phase 11 on the main path's shape with a window of
+# history, phases 12 and 13 at the JAX package's smoothing shape
+# (bench.py's FFBS-MCMC row: N = M = 2^17, T = 128), the O(N^2) forms at
+# 2^13
+HIST_WINDOW = 16
+LAG = 5
+N_SMOOTH = 2 ** 17
+T_SMOOTH = 128
+N_QUAD = 2 ** 13
+# rounds of the rejection samplers (FFBS reject, PaRIS) before the exact
+# kernel takes the stragglers: with the default (M, or N), a draw far in a
+# tail takes thousands of rounds, each one host sync
+REJECT_TRIALS = 32
+# sd of each smoother's estimate at t, in units of scale_t / sqrt(N):
+# scale_t is the exact smoothing sd at t, times sqrt(t + 1) for the
+# on-line smoothers (whose target is a sum of t + 1 means).  From
+# tools/smoothing_error_scale.py on the H100: the spread of each estimate
+# over 20 seeds (none of them the phases'), each run as its phase runs it
+# and at its N; the largest sd over the T times, rounded up to a tenth.
+# Each check allows SMOOTH_SDS of them at every t.
+SMOOTH_SD = {"fixed_lag": 55.3, "online_naive": 93.4, "paris": 4.5,
+             "ffbs_mcmc": 11.3, "ffbs_reject": 10.5, "two_filter_ON": 10.5,
+             "online_ON2": 3.0, "ffbs_ON2": 9.6, "two_filter_ON2": 9.7}
+SMOOTH_SDS = 5
 # the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
 # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -190,6 +252,140 @@ def _strained_counts(rng, tile):
     return cases
 
 
+def check_b1(torch, ops, dev, tag, W_np, u, M, strained=False):
+    """B1 on ``W_np`` against its plain version and float64: int32 (N,),
+    nondecreasing, ``z[-1] == M``, ``0 <= z <= M`` and ``|z - plain| <= 1``;
+    ``|z - float64| <= 1``, or, ``strained`` (N > 2^20 or M = 4N, where the
+    fixed-point grid puts the function itself further off), no further
+    from float64 than the plain version, plus 1.  Returns (z, |z - plain|,
+    |z - float64|, |plain - float64|, elements differing from plain)."""
+    N = len(W_np)
+    W = torch.from_numpy(W_np).to(dev)
+    ut = torch.tensor(u, dtype=torch.float32, device=dev)
+    z = ops.systematic_z_fused(W, ut, M)
+    zp = ops.systematic_z_plain(W, ut, M)
+    torch.cuda.synchronize()
+    zc = z.cpu().numpy().astype(np.int64)
+    zpc = zp.cpu().numpy().astype(np.int64)
+    zo = _oracle_z(W_np, u, M)
+    _check(z.dtype == torch.int32 and zc.shape == (N,), f"{tag}: shape")
+    _check(bool(np.all(np.diff(zc) >= 0)), f"{tag}: not nondecreasing")
+    _check(zc[-1] == M and zc.min() >= 0 and zc.max() <= M, f"{tag}: range")
+    dp = int(np.abs(zc - zpc).max())
+    do = int(np.abs(zc - zo).max())
+    dpo = int(np.abs(zpc - zo).max())
+    _check(dp <= 1, f"{tag}: |z - plain| = {dp} > 1")
+    _check(do <= (max(1, dpo + 1) if strained else 1),
+           f"{tag}: |z - oracle| = {do}, |plain - oracle| = {dpo}")
+    return z, dp, do, dpo, int(np.count_nonzero(zc != zpc))
+
+
+def check_b2(torch, tag, forms):
+    """B2 against its plain version, exact: ``forms`` is a list of (name,
+    (payloads, A), (plain payloads, plain A)).  Returns the largest
+    difference (0)."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for form, (ys, A), (yps, Ap) in forms:
+        for y, yp in zip(ys, yps, strict=True):
+            _check(y.dtype == yp.dtype and y.shape == yp.shape,
+                   f"{tag} {form}: {y.dtype}{tuple(y.shape)} vs "
+                   f"{yp.dtype}{tuple(yp.shape)}")
+            d = float((y.double() - yp.double()).abs().max())
+            err = max(err, d)
+            _check(torch.equal(y, yp), f"{tag} {form}: {y.dtype} "
+                                       f"payload differs (max {d})")
+        if Ap is not None:
+            _check(A is not None and A.dtype == torch.int64
+                   and torch.equal(A, Ap), f"{tag} {form}: ancestors differ")
+    return err
+
+
+def check_b3(torch, ops, dev, tag, W_np):
+    """B3 on ``W_np`` against its plain version and float64: nondecreasing,
+    ``|cs[-1] - 1| < 1e-6``, within N 2^-31 + 1e-6 of both.  Returns (cs,
+    |cs - plain|)."""
+    N = len(W_np)
+    W = torch.from_numpy(W_np).to(dev)
+    cs = ops.normalised_cumsum_exact(W)
+    cp = ops.normalised_cumsum_plain(W)
+    torch.cuda.synchronize()
+    csc, cpc = cs.cpu().numpy(), cp.cpu().numpy()
+    W64 = W_np.astype(np.float64)
+    co = np.cumsum(W64) / W64.sum()
+    tol = N * 2.0 ** -31 + 1e-6
+    _check(cs.dtype == torch.float32 and csc.shape == (N,), f"{tag}: shape")
+    _check(bool(np.all(np.diff(csc) >= 0)), f"{tag}: not nondecreasing")
+    _check(abs(csc[-1] - 1.0) < 1e-6, f"{tag}: cs[-1] = {csc[-1]}")
+    dp = float(np.abs(csc - cpc).max())
+    do = float(np.abs(csc - co).max())
+    _check(dp < tol, f"{tag}: |cs - plain| = {dp} >= {tol}")
+    _check(do < tol, f"{tag}: |cs - oracle| = {do} >= {tol}")
+    return cs, dp
+
+
+def check_b4(torch, ops, tag, su, cs, cols):
+    """B4 against its plain version, exact: the fused form with ancestors
+    and ancestors alone."""
+    M = su.shape[0]
+    ys, A = ops.repeat_cols_su(su, cs, M, cols, want_anc=True)
+    A_only = ops.ancestors_by_su(su, cs)
+    yps, Ap = ops.repeat_cols_su_plain(su, cs, M, cols, want_anc=True)
+    torch.cuda.synchronize()
+    _check(A.dtype == torch.int64 and torch.equal(A, Ap)
+           and torch.equal(A_only, Ap), f"{tag}: ancestors differ")
+    for out, out_plain in zip(ys, yps, strict=True):
+        _check(out.dtype == out_plain.dtype and torch.equal(out, out_plain),
+               f"{tag}: {out.dtype} payload differs")
+
+
+def check_path_kernels(torch, dev, tag, lw, X, Ms, seed):
+    """The kernels on a smoothing path's own inputs: the weights of ``lw``
+    and the particles ``X`` (N,) as the forward step hands them to B1 and
+    B2 (the move with the particles, with and without ancestors), and, for
+    each M in ``Ms``, as the backward passes and PaRIS hand them to B3 (the
+    CDF) and B4 (M draws served with the particles).  Tolerances as in
+    phases 2, 3, 5 and 7.  Returns the cases and largest errors."""
+    from particles_tpu_torch import ops
+    from particles_tpu_torch import resampling as rs
+
+    W = rs.exp_and_normalise(lw)
+    W_np = W.cpu().numpy()
+    N = len(W_np)
+    u = float(np.random.default_rng(seed).random())
+    z, dz, dz64, _, _ = check_b1(torch, ops, dev, f"{tag} B1", W_np, u, N)
+    db2 = check_b2(torch, f"{tag} B2", [
+        ("fused+anc", ops.repeat_cols(z, N, [X], want_anc=True),
+         ops.repeat_cols_plain(z, N, [X], want_anc=True)),
+        ("payload", ops.repeat_cols(z, N, [X]),
+         ops.repeat_cols_plain(z, N, [X]))])
+    out = {"tag": tag, "N": N, "B1": 1, "B2": 2, "systematic_z_err": dz,
+           "systematic_z_err_vs_float64": dz64, "repeat_by_z_err": db2}
+    if Ms:
+        _, db3 = check_b3(torch, ops, dev, f"{tag} B3", W_np)
+        cs = rs.pinned_cdf(W)
+        for M in Ms:
+            check_b4(torch, ops, f"{tag} B4 M={M}",
+                     torch.rand(M, device=dev), cs, [X])
+        out.update({"B3": 1, "B4": len(Ms), "normalised_cumsum_err": db3,
+                    "repeat_by_su_err": 0, "M": list(Ms)})
+    return out
+
+
+def _path_checks_summary(cases):
+    """The phase's kernel checks on its own inputs, for its JSON line."""
+    keys = ("systematic_z_err", "systematic_z_err_vs_float64",
+            "repeat_by_z_err", "normalised_cumsum_err", "repeat_by_su_err")
+    return {"inputs": [{k: c[k] for k in ("tag", "N", "M") if k in c}
+                       for c in cases],
+            "cases": {k: sum(c.get(k, 0) for c in cases)
+                      for k in ("B1", "B2", "B3", "B4")},
+            **{f"max_{k}": max(c.get(k, 0) for c in cases) for k in keys},
+            "tolerance": "B1 |dz| <= 1 vs plain and float64; B3 |dcs| < "
+                         "N 2^-31 + 1e-6 vs plain and float64; B2, B4 "
+                         "exact"}
+
+
 def _simulate_y(T):
     """Observations of the main path's model, from a numpy seed."""
     rng = np.random.default_rng(1)
@@ -198,6 +394,39 @@ def _simulate_y(T):
     for t in range(1, T):
         xs[t] = RHO * xs[t - 1] + SIGX * rng.normal()
     return (xs + SIGY * rng.normal(size=T)).astype(np.float32)
+
+
+def kalman_targets(y, lag):
+    """Exact float64 targets of the smoothers on the main path's model:
+    the smoothing means and variances given all of ``y`` (``mean``,
+    ``var``); ``S[t] = sum_{s <= t} E[x_s | y_{0:t}]``, the on-line
+    smoothers' target at t for the additive function x_t; and ``F[t] =
+    E[x_{max(t - lag, 0)} | y_{0:t}]``, the fixed-lag smoother's.  The RTS
+    step ``m_s = mf_s + J_s (m_{s+1} - mp_{s+1})`` does not depend on the
+    end time, so one backward sweep serves every end time at once."""
+    T = len(y)
+    y = np.asarray(y, np.float64)
+    mf, Pf, mp, Pp = (np.empty(T) for _ in range(4))
+    for t in range(T):
+        if t == 0:
+            mp[0], Pp[0] = 0.0, SIGX ** 2 / (1 - RHO ** 2)
+        else:
+            mp[t], Pp[t] = RHO * mf[t - 1], RHO ** 2 * Pf[t - 1] + SIGX ** 2
+        gain = Pp[t] / (Pp[t] + SIGY ** 2)
+        mf[t], Pf[t] = mp[t] + gain * (y[t] - mp[t]), (1 - gain) * Pp[t]
+    J = RHO * Pf[:-1] / Pp[1:]
+    m, S, F = mf.copy(), mf.copy(), np.empty(T)   # m[e]: m_s given y_{0:e}
+    mean, var = np.empty(T), np.empty(T)
+    mean[-1], var[-1] = mf[-1], Pf[-1]
+    for s in range(T - 2, -1, -1):
+        m[s + 1:] = mf[s] + J[s] * (m[s + 1:] - mp[s + 1])
+        S[s + 1:] += m[s + 1:]
+        if s + lag < T:
+            F[s + lag] = m[s + lag]
+        mean[s] = m[-1]
+        var[s] = Pf[s] + J[s] ** 2 * (var[s + 1] - Pp[s + 1])
+    F[:lag] = m[:lag]
+    return {"mean": mean, "var": var, "S": S, "F": F}
 
 
 def _time_ms(torch, fn, batches=25, per_batch=10):
@@ -253,6 +482,380 @@ def _device_ms(torch, fn, calls=20):
     return sum(by_kernel.values()), per_call
 
 
+def _zero_counts(ops):
+    for f in ops.KERNELS.values():
+        f.launches = 0
+
+
+def _read_counts(ops):
+    return {name: f.launches for name, f in ops.KERNELS.items()}
+
+
+def _sync_ms(torch, fn):
+    """(result, wall ms) of ``fn``, the clock stopped after the device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1000.0 * (time.perf_counter() - t0)
+
+
+def _smooth_check(tag, est, exact, scale, N, key):
+    """|est_t - exact_t| <= SMOOTH_SDS sd at every t; returns the largest
+    error in sd."""
+    err = np.abs(np.asarray(est, np.float64) - exact)
+    in_sd = err * np.sqrt(N) / (SMOOTH_SD[key] * scale)
+    worst = float(in_sd.max())
+    _check(np.all(np.isfinite(est)) and worst <= SMOOTH_SDS,
+           f"{tag}: error {worst:.2f} sd at t = {int(in_sd.argmax())} "
+           f"(limit {SMOOTH_SDS} sd)")
+    return {"max_abs_err": float(err.max()), "max_err_sd": worst,
+            "tolerance_sd": SMOOTH_SDS,
+            "sd_at_t0": float(SMOOTH_SD[key] * scale[0] / np.sqrt(N))}
+
+
+def _lg_smooth(kalman):
+    class LGsmooth(kalman.LinearGauss):
+        """The main path's model with the additive function x_t."""
+
+        def add_func(self, t, xp, x):
+            return x
+
+    return LGsmooth(rho=RHO, sigmaX=SIGX, sigmaY=SIGY)
+
+
+def phase_history(torch, dev, smi, y, kf_logLt, main_ms):
+    """Phase 11: the main path with a window of history and two genealogy
+    collectors, at N = 2^20 and T = 1000."""
+    import warnings
+
+    from particles_tpu_torch import collectors, kalman, ops
+    from particles_tpu_torch import state_space_models as ssms
+    from particles_tpu_torch.core import SMC
+
+    fk = ssms.Bootstrap(ssm=_lg_smooth(kalman),
+                        data=torch.from_numpy(y).to(dev))
+    tg = kalman_targets(y, LAG)
+    sd = np.sqrt(tg["var"])
+
+    class ANondecreasing(collectors.Collector):
+        """On the device: the step's ancestors exist and are nondecreasing
+        (False on a resampling step that lacks them)."""
+
+        summary_name = "a_nondecreasing"
+
+        def collect(self, view):
+            if not view.rs_flag:
+                return torch.ones((), dtype=torch.bool, device=dev)
+            if view.A is None:
+                return torch.zeros((), dtype=torch.bool, device=dev)
+            return (view.A[1:] >= view.A[:-1]).all()
+
+    def smoothers():
+        return [collectors.Fixed_lag_smooth(lag=LAG),
+                collectors.Online_smooth_naive()]
+
+    _zero_counts(ops)
+    pf = SMC(fk=fk, N=N_MAIN, seed=11, store_history=HIST_WINDOW,
+             collect=smoothers() + [ANondecreasing()])
+    next(pf)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(T_MAIN - 1):
+                next(pf)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    for _ in pf:
+        pass
+    launches = _read_counts(ops)
+    n_rs = int(pf.summaries.rs_flags.sum())
+    logLt = float(pf.logLt)
+    _check(abs(logLt - kf_logLt) < LOGLT_TOL,
+           f"phase 11: |logLt - Kalman| = {abs(logLt - kf_logLt)}")
+    for name, n in launches.items():
+        want = n_rs if name in ("systematic_z", "repeat_by_z") else 0
+        _check(n == want and n_rs > 0, f"phase 11: {name} launched {n} "
+                                       f"times, {n_rs} resampling steps")
+    _check(syncs == T_MAIN - 1, f"phase 11: {syncs} host syncs in "
+                                f"{T_MAIN - 1} steps")
+    _check(bool(pf.summaries.a_nondecreasing.all()),
+           "phase 11: a resampling step's ancestors missing or not sorted")
+    h = pf.hist
+    _check(h.T == HIST_WINDOW and len(h.A) == HIST_WINDOW
+           and torch.equal(h.X[-1], pf.X), "phase 11: the window")
+    A_np = [a.cpu().numpy() for a in h.A]
+    B = [np.arange(N_MAIN)]
+    for a in reversed(A_np[1:]):
+        B.append(a[B[-1]])
+    _check(np.array_equal(h.compute_trajectories().cpu().numpy(),
+                          np.stack(B[::-1])),
+           "phase 11: the window's trajectories differ from numpy's")
+    s = pf.summaries
+    fixed = _smooth_check("phase 11 fixed lag",
+                          s.fixed_lag_smooths.cpu().numpy(), tg["F"], sd,
+                          N_MAIN, "fixed_lag")
+    grow = sd.mean() * np.sqrt(np.arange(1, T_MAIN + 1))
+    naive = _smooth_check("phase 11 naive on-line",
+                          s.online_smooth_naives.cpu().numpy(), tg["S"],
+                          grow, N_MAIN, "online_naive")
+    warm = SMC(fk=fk, N=N_MAIN, seed=12, store_history=HIST_WINDOW,
+               collect=smoothers())
+    warm.run()
+    ms = 1000.0 * warm.cpu_time / T_MAIN
+    _emit({"phase": 11, "nvidia_smi": smi, "N": N_MAIN, "T": T_MAIN,
+           "store_history": HIST_WINDOW,
+           "collect": ["Fixed_lag_smooth(lag=5)", "Online_smooth_naive()"],
+           "logLt": logLt, "abs_diff": abs(logLt - kf_logLt),
+           "tolerance": LOGLT_TOL, "resampling_steps": n_rs,
+           "launches": launches, "host_syncs": syncs,
+           "host_syncs_per_step": syncs / (T_MAIN - 1),
+           "window_frames": h.T, "window_trajectories": "equal to numpy's",
+           "fixed_lag_vs_kalman": fixed, "naive_vs_kalman": naive,
+           "ms_per_step": ms, "main_path_ms_per_step": main_ms,
+           "ratio_to_main_path": ms / main_ms})
+    return {"phase 11 forward": launches}
+
+
+def phase_offline(torch, dev, smi):
+    """Phase 12: the off-line smoothers against the Kalman smoother."""
+    from particles_tpu_torch import kalman, ops
+    from particles_tpu_torch import state_space_models as ssms
+    from particles_tpu_torch.core import SMC
+
+    y = _simulate_y(T_SMOOTH)
+    tg = kalman_targets(y, LAG)
+    sd = np.sqrt(tg["var"])
+    ssm = _lg_smooth(kalman)
+    fk = ssms.Bootstrap(ssm=ssm, data=torch.from_numpy(y).to(dev))
+    info_fk = ssms.Bootstrap(ssm=ssm,
+                             data=torch.from_numpy(y[::-1].copy()).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out, all_launches = {}, {}
+
+    def forward(N, seed, data_fk=fk):
+        pf = SMC(fk=data_fk, N=N, seed=seed, store_history=True)
+        pf.run()
+        return pf
+
+    def measured(name, fn, steps, kernels):
+        """Run ``fn`` with the counts zeroed; the kernels named must have
+        launched, and no other."""
+        _zero_counts(ops)
+        res, ms = _sync_ms(torch, fn)
+        launches = _read_counts(ops)
+        for k, n in launches.items():
+            _check((n > 0) == (k in kernels),
+                   f"phase 12 {name}: {k} launched {n} times")
+        all_launches[f"phase 12 {name}"] = launches
+        return res, {"ms_per_backward_step": ms / steps,
+                     "launches": launches}
+
+    pf = forward(N_SMOOTH, 21)
+    forward(N_SMOOTH, 20)    # the allocator and the draws warm
+    steps = T_SMOOTH - 1
+    for name, fn in (
+            ("ffbs_mcmc", lambda: pf.hist.backward_sampling_mcmc(
+                gen, N_SMOOTH, nsteps=1)),
+            ("ffbs_reject", lambda: pf.hist.backward_sampling_reject(
+                gen, N_SMOOTH, max_trials=REJECT_TRIALS))):
+        paths, rec = measured(name, fn, steps,
+                              {"normalised_cumsum", "repeat_by_su"})
+        _check(paths.shape == (T_SMOOTH, N_SMOOTH), f"{name}: shape")
+        rec.update(_smooth_check(f"phase 12 {name}",
+                                 paths.mean(1).cpu().numpy(), tg["mean"],
+                                 sd, N_SMOOTH, name))
+        if name == "ffbs_mcmc":
+            want = {"normalised_cumsum": 1 + steps, "repeat_by_su": 1 + steps}
+        else:
+            rec.update({"max_trials": REJECT_TRIALS,
+                        "rounds": sum(pf.hist.rounds),
+                        "rounds_per_step": sum(pf.hist.rounds) / steps,
+                        "max_rounds_in_a_step": max(pf.hist.rounds),
+                        "stragglers": sum(pf.hist.stragglers),
+                        "steps_with_stragglers": sum(
+                            n > 0 for n in pf.hist.stragglers)})
+            # one CDF a step, one B4 launch a round
+            want = {"normalised_cumsum": 1 + steps,
+                    "repeat_by_su": 1 + sum(pf.hist.rounds)}
+        for k, n in want.items():
+            _check(rec["launches"][k] == n,
+                   f"phase 12 {name}: {k} launched {rec['launches'][k]}, "
+                   f"expected {n}")
+        out[name] = rec
+    info = forward(N_SMOOTH, 22, info_fk)
+
+    def two_filter_ON():
+        return torch.stack([pf.hist.two_filter_smoothing(
+            t, info, lambda x, xf: x, ssm.PX0().logpdf, linear_cost=True,
+            gen=gen) for t in range(steps)])
+
+    est, rec = measured("two_filter_ON", two_filter_ON, steps,
+                        {"normalised_cumsum", "repeat_by_su"})
+    for k in ("normalised_cumsum", "repeat_by_su"):
+        _check(rec["launches"][k] == 2 * steps,
+               f"phase 12 two_filter_ON: {k} launched {rec['launches'][k]}, "
+               f"expected {2 * steps}")
+    rec.update(_smooth_check("phase 12 two-filter O(N)", est.cpu().numpy(),
+                             tg["mean"][:-1], sd[:-1], N_SMOOTH,
+                             "two_filter_ON"))
+    out["two_filter_ON"] = rec
+    pfq, infoq = forward(N_QUAD, 23), forward(N_QUAD, 24, info_fk)
+    paths, rec = measured(
+        "ffbs_ON2", lambda: pfq.hist.backward_sampling_ON2(gen, N_QUAD),
+        steps, {"normalised_cumsum", "repeat_by_su"})
+    _check(rec["launches"]["normalised_cumsum"] == 1
+           and rec["launches"]["repeat_by_su"] == 1,
+           f"phase 12 ffbs_ON2: launches {rec['launches']}")
+    rec.update(_smooth_check("phase 12 ffbs_ON2",
+                             paths.mean(1).cpu().numpy(), tg["mean"], sd,
+                             N_QUAD, "ffbs_ON2"))
+    out["ffbs_ON2"] = rec
+
+    def two_filter_ON2():
+        return torch.stack([pfq.hist.two_filter_smoothing(
+            t, infoq, lambda x, xf: x, ssm.PX0().logpdf)
+            for t in range(steps)])
+
+    est, rec = measured("two_filter_ON2", two_filter_ON2, steps, set())
+    rec.update(_smooth_check("phase 12 two-filter O(N^2)",
+                             est.cpu().numpy(), tg["mean"][:-1], sd[:-1],
+                             N_QUAD, "two_filter_ON2"))
+    out["two_filter_ON2"] = rec
+    # every kernel of the phase on the phase's own inputs: the forward
+    # weights and particles at 2^17 and 2^13 (B1, B2 in the forward step;
+    # B3, B4 in the backward passes, M from PaRIS's 2N to a last
+    # straggler), and the information filter's weights of two-filter O(N)
+    checks = []
+    for h, N in ((pf.hist, N_SMOOTH), (pfq.hist, N_QUAD)):
+        Ms = (2 * N, N, N // 2 + 1, 37, 1)
+        for t in (0, T_SMOOTH // 2, T_SMOOTH - 2):
+            checks.append(check_path_kernels(
+                torch, dev, f"phase 12 N={N} t={t}", h.lw[t], h.X[t], Ms,
+                seed=t))
+    ti = T_SMOOTH // 2
+    checks.append(check_path_kernels(
+        torch, dev, f"phase 12 information filter t={ti}",
+        info.hist.lw[ti] - ssm.PX0().logpdf(info.hist.X[ti]),
+        info.hist.X[ti], (N_SMOOTH,), seed=ti))
+    _emit({"phase": 12, "nvidia_smi": smi, "T": T_SMOOTH,
+           "N": N_SMOOTH, "M": N_SMOOTH, "N_quadratic": N_QUAD,
+           "forward_resampling_steps": int(pf.summaries.rs_flags.sum()),
+           "smoothers": out, "kernels_vs_plain": _path_checks_summary(checks)})
+    return all_launches, checks
+
+
+def phase_online(torch, dev, smi):
+    """Phase 13: PaRIS, the O(N^2) on-line smoother and the variance
+    estimators."""
+    from particles_tpu_torch import collectors, kalman, ops
+    from particles_tpu_torch import state_space_models as ssms
+    from particles_tpu_torch import variance_estimators as ve
+    from particles_tpu_torch.core import SMC
+
+    y = _simulate_y(T_SMOOTH)
+    tg = kalman_targets(y, LAG)
+    grow = np.sqrt(tg["var"]).mean() * np.sqrt(np.arange(1, T_SMOOTH + 1))
+    fk = ssms.Bootstrap(ssm=_lg_smooth(kalman),
+                        data=torch.from_numpy(y).to(dev))
+    all_launches = {}
+
+    def run(N, seed, cols, **kw):
+        pf = SMC(fk=fk, N=N, seed=seed, collect=cols, **kw)
+        pf.run()
+        return pf, 1000.0 * pf.cpu_time / T_SMOOTH
+
+    run(N_SMOOTH, 30, [])          # warm
+    alone = {N: run(N, 31, [])[1] for N in (N_SMOOTH, N_QUAD)}
+    paris = collectors.Paris(Nparis=2, max_trials=REJECT_TRIALS)
+    _zero_counts(ops)
+    pf, paris_ms = run(N_SMOOTH, 32, [paris])
+    launches = _read_counts(ops)
+    all_launches["phase 13 Paris"] = launches
+    rounds = sum(paris.rounds)
+    for k, n in launches.items():
+        # one CDF a step (each step has a round), one B4 launch a round
+        want = {"normalised_cumsum": T_SMOOTH - 1, "repeat_by_su": rounds,
+                "systematic_z": int(pf.summaries.rs_flags.sum()),
+                "repeat_by_z": int(pf.summaries.rs_flags.sum())}.get(k, 0)
+        _check(n == want and (want > 0 or k not in ("normalised_cumsum",
+                                                    "repeat_by_su")),
+               f"phase 13 Paris: {k} launched {n} times, expected {want}")
+    paris_err = _smooth_check("phase 13 Paris",
+                              pf.summaries.paris.cpu().numpy(), tg["S"],
+                              grow, N_SMOOTH, "paris")
+    # the kernels on the phase's own inputs: PaRIS's last weights and
+    # particles (its draws: M = 2N, then the rejected, down to a few), the
+    # forward steps of each run (B1, B2)
+    checks = [check_path_kernels(
+        torch, dev, "phase 13 Paris", pf.wgts.lw, pf.X,
+        (2 * N_SMOOTH, N_SMOOTH, N_SMOOTH // 2 + 1, 37, 1), seed=13)]
+    pf, on2_ms = run(N_QUAD, 33, [collectors.Online_smooth_ON2()])
+    on2_err = _smooth_check("phase 13 Online_smooth_ON2",
+                            pf.summaries.online_smooth_ON2s.cpu().numpy(),
+                            tg["S"], grow, N_QUAD, "online_ON2")
+    checks.append(check_path_kernels(
+        torch, dev, "phase 13 Online_smooth_ON2", pf.wgts.lw, pf.X, (),
+        seed=14))
+    var_ms = {}
+    for cls in (ve.Var, ve.Var_logLt, ve.Lag_based_var):
+        var_ms[cls.__name__] = run(N_SMOOTH, 34, [cls()])[1]
+    coalesced = {}
+    for N in (N_SMOOTH, 256):
+        pf, _ = run(N, 35, [ve.Var(), ve.Var_logLt(),
+                            ve.Lag_based_var(lag=LAG)], store_history=True)
+        s = pf.summaries
+        for t in (1, T_SMOOTH - 2):
+            checks.append(check_path_kernels(
+                torch, dev, f"phase 13 variance estimators N={N} t={t}",
+                pf.hist.lw[t], pf.hist.X[t], (), seed=t))
+        for name in ("var", "var_logLt", "lag_based_var"):
+            v = getattr(s, name)
+            _check(bool(torch.isfinite(v).all() and (v >= 0).all()),
+                   f"phase 13 {name} N={N}: not finite and >= 0")
+        A = pf.hist.A
+        eve = torch.arange(N, device=dev)
+        n_eve = n_lag = 0
+        for t in range(T_SMOOTH):
+            eve = eve[A[t]]
+            if bool((eve == eve[0]).all()):
+                _check(float(s.var[t]) == 0.0,
+                       f"phase 13 Var N={N} t={t}: coalesced, not 0")
+                n_eve += 1
+            B = torch.arange(N, device=dev)
+            for i in range(LAG + 1):
+                if i:
+                    B = A[max(t - i + 1, 0)][B]
+                if bool((B == B[0]).all()):
+                    _check(float(s.lag_based_var[t, i]) == 0.0,
+                           f"phase 13 Lag_based_var N={N} t={t} lag {i}: "
+                           "coalesced, not 0")
+                    n_lag += 1
+        coalesced[N] = {"var_steps_coalesced": n_eve,
+                        "lag_estimates_coalesced": n_lag}
+    _check(coalesced[256]["var_steps_coalesced"] > 0,
+           "phase 13: the genealogy at N = 256 never coalesced")
+    _emit({"phase": 13, "nvidia_smi": smi, "N": N_SMOOTH, "T": T_SMOOTH,
+           "N_quadratic": N_QUAD,
+           "filter_alone_ms_per_step": alone[N_SMOOTH],
+           "paris": {"Nparis": 2, "max_trials": REJECT_TRIALS,
+                     "ms_per_step": paris_ms,
+                     "rounds_per_step": rounds / (T_SMOOTH - 1),
+                     "max_rounds_in_a_step": max(paris.rounds),
+                     "launches": launches, **paris_err},
+           "online_smooth_ON2": {"N": N_QUAD, "ms_per_step": on2_ms,
+                                 "filter_alone_ms_per_step": alone[N_QUAD],
+                                 **on2_err},
+           "variance_estimators_ms_per_step": var_ms,
+           "coalesced": {str(k): v for k, v in coalesced.items()},
+           "kernels_vs_plain": _path_checks_summary(checks)})
+    return all_launches, checks
+
+
 def main():
     import torch
 
@@ -294,26 +897,11 @@ def main():
     cases = [(N, N, k, u) for N in Ns for k in kinds for u in us]
     cases.append((1000, 501, "dirichlet1", 0.37))   # M != N
     for N, M, wkind, u in cases:
-        W_np = _dirichlet_like(rng, wkind, N)
-        W = torch.from_numpy(W_np).to(dev)
-        ut = torch.tensor(u, dtype=torch.float32, device=dev)
-        z = ops.systematic_z_fused(W, ut, M)
-        zp = ops.systematic_z_plain(W, ut, M)
-        torch.cuda.synchronize()
-        zc = z.cpu().numpy().astype(np.int64)
-        zpc = zp.cpu().numpy().astype(np.int64)
-        zo = _oracle_z(W_np, u, M)
-        tag = f"B1 N={N} M={M} {wkind} u={u}"
-        _check(z.dtype == torch.int32 and zc.shape == (N,), f"{tag}: shape")
-        _check(bool(np.all(np.diff(zc) >= 0)), f"{tag}: not nondecreasing")
-        _check(zc[-1] == M and zc.min() >= 0 and zc.max() <= M,
-               f"{tag}: range")
-        dp = int(np.abs(zc - zpc).max())
-        do = int(np.abs(zc - zo).max())
-        _check(dp <= 1, f"{tag}: |z - plain| = {dp} > 1")
-        _check(do <= 1, f"{tag}: |z - oracle| = {do} > 1")
+        z, dp, do, _, nd = check_b1(
+            torch, ops, dev, f"B1 N={N} M={M} {wkind} u={u}",
+            _dirichlet_like(rng, wkind, N), u, M)
         err_plain, err_oracle = max(err_plain, dp), max(err_oracle, do)
-        n_differ += int(np.count_nonzero(zc != zpc))
+        n_differ += nd
         n_cases += 1
         if (wkind == "dirichlet0.05" and u == 0.37) or M != N:
             zs[(N, M)] = z
@@ -358,33 +946,14 @@ def main():
                 n_exact += 1
     err_plain_oracle = 0
     for name, W_np, M in strained:
-        N = len(W_np)
-        W = torch.from_numpy(W_np).to(dev)
         for u in us:
-            ut = torch.tensor(u, dtype=torch.float32, device=dev)
-            z = ops.systematic_z_fused(W, ut, M)
-            zp = ops.systematic_z_plain(W, ut, M)
-            torch.cuda.synchronize()
-            zc = z.cpu().numpy().astype(np.int64)
-            zpc = zp.cpu().numpy().astype(np.int64)
-            zo = _oracle_z(W_np, u, M)
-            tag = f"B1 {name} M={M} u={u}"
-            _check(z.dtype == torch.int32 and zc.shape == (N,),
-                   f"{tag}: shape")
-            _check(bool(np.all(np.diff(zc) >= 0)),
-                   f"{tag}: not nondecreasing")
-            _check(zc[-1] == M and zc.min() >= 0 and zc.max() <= M,
-                   f"{tag}: range")
-            dp = int(np.abs(zc - zpc).max())
-            do = int(np.abs(zc - zo).max())
-            dpo = int(np.abs(zpc - zo).max())
-            _check(dp <= 1, f"{tag}: |z - plain| = {dp} > 1")
-            _check(do <= max(1, dpo + 1), f"{tag}: |z - oracle| = {do}, "
-                                          f"|plain - oracle| = {dpo}")
+            _, dp, do, dpo, nd = check_b1(torch, ops, dev,
+                                          f"B1 {name} M={M} u={u}", W_np, u,
+                                          M, strained=True)
             err_plain = max(err_plain, dp)
             err_oracle = max(err_oracle, do)
             err_plain_oracle = max(err_plain_oracle, dpo)
-            n_differ += int(np.count_nonzero(zc != zpc))
+            n_differ += nd
             n_cases += 1
     _emit({"phase": 2, "kernel": "systematic_z", "cases": n_cases,
            "strained_cases": len(strained) * len(us),
@@ -403,29 +972,16 @@ def main():
     b2_err = 0.0
     n_cases = 0
 
-    def check_b2(tag, forms):
+    def b2(tag, forms):
         nonlocal b2_err, n_cases
-        torch.cuda.synchronize()
-        for form, (ys, A), (yps, Ap) in forms:
-            for y, yp in zip(ys, yps, strict=True):
-                _check(y.dtype == yp.dtype and y.shape == yp.shape,
-                       f"{tag} {form}: {y.dtype}{tuple(y.shape)} vs "
-                       f"{yp.dtype}{tuple(yp.shape)}")
-                d = float((y.double() - yp.double()).abs().max())
-                b2_err = max(b2_err, d)
-                _check(torch.equal(y, yp), f"{tag} {form}: {y.dtype} "
-                                           f"payload differs (max {d})")
-            if Ap is not None:
-                _check(A is not None and A.dtype == torch.int64
-                       and torch.equal(A, Ap), f"{tag} {form}: ancestors "
-                                               f"differ")
-            n_cases += 1
+        b2_err = max(b2_err, check_b2(torch, tag, forms))
+        n_cases += len(forms)
 
     for (N, M), z in zs.items():
         cols = _payloads(torch, dev, N)
         many = [torch.randn(N, device=dev)
                 for _ in range(ops.MAX_PAYLOADS + 2)]
-        check_b2(f"B2 N={N} M={M}", [
+        b2(f"B2 N={N} M={M}", [
             ("fused+anc", ops.repeat_cols(z, M, cols, want_anc=True),
              ops.repeat_cols_plain(z, M, cols, want_anc=True)),
             ("anc only", ([], ops.ancestors_by_z(z, M)),
@@ -437,7 +993,7 @@ def main():
         N = len(counts)
         z = torch.from_numpy(np.cumsum(counts).astype(np.int32)).to(dev)
         cols = _payloads(torch, dev, N)
-        check_b2(f"B2 {name} (N={N} M={M})", [
+        b2(f"B2 {name} (N={N} M={M})", [
             ("fused+anc", ops.repeat_cols(z, M, cols, want_anc=True),
              ops.repeat_cols_plain(z, M, cols, want_anc=True)),
             ("anc only", ([], ops.ancestors_by_z(z, M)),
@@ -495,46 +1051,30 @@ def main():
     n_cases = 0
     cdfs = {}
 
-    def check_b3(tag, W_np):
+    def b3(tag, W_np):
         nonlocal b3_err, n_cases
-        N = len(W_np)
-        W = torch.from_numpy(W_np).to(dev)
-        cs = ops.normalised_cumsum_exact(W)
-        cp = ops.normalised_cumsum_plain(W)
-        torch.cuda.synchronize()
-        csc, cpc = cs.cpu().numpy(), cp.cpu().numpy()
-        W64 = W_np.astype(np.float64)
-        co = np.cumsum(W64) / W64.sum()
-        tol = N * 2.0 ** -31 + 1e-6
-        _check(cs.dtype == torch.float32 and csc.shape == (N,),
-               f"{tag}: shape")
-        _check(bool(np.all(np.diff(csc) >= 0)), f"{tag}: not nondecreasing")
-        _check(abs(csc[-1] - 1.0) < 1e-6, f"{tag}: cs[-1] = {csc[-1]}")
-        dp = float(np.abs(csc - cpc).max())
-        do = float(np.abs(csc - co).max())
-        _check(dp < tol, f"{tag}: |cs - plain| = {dp} >= {tol}")
-        _check(do < tol, f"{tag}: |cs - oracle| = {do} >= {tol}")
+        cs, dp = check_b3(torch, ops, dev, tag, W_np)
         b3_err = max(b3_err, dp)
         n_cases += 1
         return cs
 
     for N in Ns:
         for wkind in kinds:
-            cdfs[(N, wkind)] = check_b3(
+            cdfs[(N, wkind)] = b3(
                 f"B3 N={N} {wkind}", _dirichlet_like(rng, wkind, N))
     tile, cache_tiles, max_grid = ops.normalised_cumsum_geometry(dev)
     for N in (tile + 1, max_grid * tile + 1,
               max_grid * cache_tiles * tile + 1, 2 ** 24):
-        check_b3(f"B3 N={N}", _dirichlet_like(rng, "dirichlet1", N))
+        b3(f"B3 N={N}", _dirichlet_like(rng, "dirichlet1", N))
     for k in (0, N_MAIN // 2, N_MAIN - 1):
         W_np = np.zeros(N_MAIN, dtype=np.float32)
         W_np[k] = 1.0
-        check_b3(f"B3 all weight on particle {k}", W_np)
+        b3(f"B3 all weight on particle {k}", W_np)
     W_np = np.zeros(N_MAIN, dtype=np.float32)
     W_np[rng.choice(N_MAIN, 5, replace=False)] = rng.random(5)
-    check_b3("B3 mostly zero", W_np)
+    b3("B3 mostly zero", W_np)
     # the least S for which 2^30 / S is a finite f32 is about 3.2e-30
-    check_b3("B3 S = 4e-30", (_dirichlet_like(rng, "dirichlet1", N_MAIN)
+    b3("B3 S = 4e-30", (_dirichlet_like(rng, "dirichlet1", N_MAIN)
                               * np.float32(4e-30)).astype(np.float32))
     for N in (N_MAIN, 2 ** 24):      # S exact in double: cs bit-exact
         k = rng.integers(0, 256, N)
@@ -618,19 +1158,9 @@ def main():
     # -- 7. B4 against its plain version, exact ------------------------------
     n_cases = 0
 
-    def check_b4(tag, su, cs, cols):
+    def b4_case(tag, su, cs, cols):
         nonlocal n_cases
-        M = su.shape[0]
-        ys, A = ops.repeat_cols_su(su, cs, M, cols, want_anc=True)
-        A_only = ops.ancestors_by_su(su, cs)
-        yps, Ap = ops.repeat_cols_su_plain(su, cs, M, cols, want_anc=True)
-        torch.cuda.synchronize()
-        _check(A.dtype == torch.int64 and torch.equal(A, Ap)
-               and torch.equal(A_only, Ap), f"{tag}: ancestors differ")
-        for out, out_plain in zip(ys, yps, strict=True):
-            _check(out.dtype == out_plain.dtype
-                   and torch.equal(out, out_plain),
-                   f"{tag}: {out.dtype} payload differs")
+        check_b4(torch, ops, tag, su, cs, cols)
         n_cases += 1
 
     for (N, wkind), cs in cdfs.items():
@@ -642,7 +1172,7 @@ def main():
         u = torch.rand(N, device=dev)
         for form, su in [("unsorted", u), ("sorted", u.sort().values),
                          ("M=4N", torch.rand(4 * N, device=dev))]:
-            check_b4(f"B4 N={N} {form}", su, cs1, cols)
+            b4_case(f"B4 N={N} {form}", su, cs1, cols)
     # strained cases, N not a power of two
     N = N_MAIN - 513
     cols = _payloads(torch, dev, N)
@@ -675,7 +1205,7 @@ def main():
                      cs_zero))
     strained.append(("M=4N", torch.rand(4 * N, device=dev), cs))
     for form, su, c in strained:
-        check_b4(f"B4 {form} (N={N})", su, c, cols)
+        b4_case(f"B4 {form} (N={N})", su, c, cols)
     _emit({"phase": 7, "kernel": "repeat_by_su", "cases": n_cases,
            "strained_cases": len(strained), "guide_buckets":
            ops.guide_buckets(N_MAIN), "max_abs_err_vs_plain": 0,
@@ -709,11 +1239,10 @@ def main():
 
     # -- 9. every resampling scheme through multiSMC -------------------------
     def zero_counts():
-        for f in ops.KERNELS.values():
-            f.launches = 0
+        _zero_counts(ops)
 
     def read_counts():
-        return {name: f.launches for name, f in ops.KERNELS.items()}
+        return _read_counts(ops)
 
     multiSMC(fk=ssms.Bootstrap(ssm=ssm, data=y[:20]), N=N_MAIN,
              resampling=SCHEMES, nruns=1)      # warm-up of every scheme
@@ -907,6 +1436,25 @@ def main():
            "repeat_by_su_sorted": b4_more["sorted"],
            "repeat_by_su_degenerate": b4_more["degenerate"],
            "bound": "max(bytes / 3.35 TB/s, operations / 67 TOP/s)"})
+    smooth_launches = phase_history(torch, dev, smi, y, kf_logLt,
+                                    1000.0 * wall / T_MAIN)
+    checks = []
+    for phase in (phase_offline, phase_online):
+        launched, phase_checks = phase(torch, dev, smi)
+        smooth_launches.update(launched)
+        checks += phase_checks
+    # the largest error against the plain version includes the smoothing
+    # phases' checks on their own inputs
+    path_err = {"systematic_z": "systematic_z_err",
+                "repeat_by_z": "repeat_by_z_err",
+                "normalised_cumsum": "normalised_cumsum_err",
+                "repeat_by_su": "repeat_by_su_err"}
+    for k in kernels:
+        k["launches_smoothing"] = {run: n[k["name"]]
+                                   for run, n in smooth_launches.items()}
+        if k["name"] in path_err:
+            k["max_abs_err"] = max([k["max_abs_err"]] + [
+                c.get(path_err[k["name"]], 0) for c in checks])
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -7,8 +7,10 @@ kernels, with the same module names and public surface, slice by slice
 Ported so far: the bootstrap particle filter with every resampling
 scheme — ``SMC``, ``multiSMC``, ``FeynmanKac``,
 ``state_space_models.Bootstrap``, ``kalman``, the ``Normal``/``MvNormal``
-distributions, the weight numerics and resampling registries, the
-default collectors — and the six kernels of ``ops``.  Entry points run on
+distributions, the weight numerics and resampling registries — the
+particle history and off-line smoothers (``smoothing``), the collectors
+with the on-line smoothers, ``variance_estimators``, and the six kernels
+of ``ops``.  Entry points run on
 the current CUDA card unless given ``device="cpu"`` or CPU tensors.
 """
 
@@ -24,8 +26,10 @@ _SUBMODULES = (
     "kalman",
     "ops",
     "resampling",
+    "smoothing",
     "state_space_models",
     "utils",
+    "variance_estimators",
 )
 
 

@@ -4,8 +4,11 @@ objects, so that the JAX package and this one can be fed the same model.
 Pull the arrays from a JAX model with ``np.asarray(getattr(ssm, k))`` —
 for each ``default_params`` key of a ``LinearGauss``, or ``F``, ``G``,
 ``covX``, ``covY``, ``mu0``, ``cov0`` of an ``MVLinearGauss`` — and pass
-them here.  Tensors go to ``device``, by default the current CUDA card
-(with no card, pass ``device="cpu"``).  This module imports no JAX.
+them here.  ``history_from_numpy`` carries a run's stacked history
+(``np.asarray`` of a JAX ``pf.hist.X``, ``.A`` and ``.lw``) into the port's
+``ParticleHistory``.  Tensors go to ``device``, by default the current
+CUDA card (with no card, pass ``device="cpu"``).  This module imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -14,10 +17,11 @@ import numpy as np
 import torch
 
 from particles_tpu_torch import kalman
+from particles_tpu_torch import smoothing
 from particles_tpu_torch import state_space_models as ssms
 from particles_tpu_torch.utils import resolve_device
 
-__all__ = ["ssm_from_params", "bootstrap_from_numpy"]
+__all__ = ["ssm_from_params", "bootstrap_from_numpy", "history_from_numpy"]
 
 _MODELS = {"LinearGauss": kalman.LinearGauss,
            "MVLinearGauss": kalman.MVLinearGauss}
@@ -54,3 +58,22 @@ def bootstrap_from_numpy(ssm, data, device=None):
     """``Bootstrap(ssm, data)`` with ``data`` (numpy, (T,) or (T, dy)) as a
     float32 tensor on ``device``."""
     return ssms.Bootstrap(ssm=ssm, data=np.asarray(data), device=device)
+
+
+def history_from_numpy(fk, X, A, lw, device=None):
+    """``ParticleHistory(fk, X, A, lw)`` from numpy arrays: ``X`` (T, N, ...)
+    or a dict of such arrays, ``A`` (T, N) as int64, ``lw`` (T, N) as
+    float32, on ``device``.  Floating particles become float32, others keep
+    their type."""
+    device = resolve_device(device)
+
+    def tensor(a):
+        a = np.asarray(a)
+        dtype = torch.float32 if np.issubdtype(a.dtype, np.floating) else None
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    X = ({k: tensor(v) for k, v in X.items()} if isinstance(X, dict)
+         else tensor(X))
+    return smoothing.ParticleHistory(
+        fk, X, torch.tensor(np.asarray(A), dtype=torch.int64, device=device),
+        tensor(lw))

@@ -13,9 +13,10 @@ versions on the CPU), the others (``killing``, ``idiotic``) gather by
 their ancestors.
 
 Ported: every resampling scheme, adaptive (ESS) or custom
-``time_to_resample``, stateless collectors, ``multiSMC`` (one run after
-another).  Not yet: SQMC, history, auxiliary filters and samplers (ROADMAP
-queue A); asking for one raises ``NotImplementedError``.
+``time_to_resample``, stateless and stateful collectors, the particle
+history (``store_history``), ``multiSMC`` (one run after another).  Not
+yet: SQMC, auxiliary filters and samplers (ROADMAP queue A); asking for one
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from particles_tpu_torch import collectors
 from particles_tpu_torch import ops
 from particles_tpu_torch import resampling as rs
+from particles_tpu_torch import smoothing
 from particles_tpu_torch import utils
 
 __all__ = ["FeynmanKac", "SMC", "SMCResult", "StepView", "multiSMC"]
@@ -93,8 +95,11 @@ class FeynmanKac:
 class StepView(NamedTuple):
     """What collectors and ``time_to_resample`` see at each step.
 
-    ``A`` (ancestor indices, int64) is filled only when a collector reads
-    the genealogy; otherwise it is None.  ``rs_flag`` is a Python bool.
+    ``A`` (ancestor indices, int64) is filled only when the history is
+    stored or a collector reads the genealogy; otherwise it is None.
+    ``rs_flag`` is a Python bool.  ``gen`` is the run's generator (the
+    JAX view carries a key); a collector that draws takes a generator of
+    its own, so that the filter's particles do not depend on it.
     """
 
     fk: Any
@@ -109,6 +114,7 @@ class StepView(NamedTuple):
     loglt: Any
     N: int
     ESSrmin: float
+    gen: Any = None
 
     @property
     def W(self):
@@ -116,12 +122,14 @@ class StepView(NamedTuple):
 
 
 class _Carry(NamedTuple):
-    """The state one step hands to the next."""
+    """The state one step hands to the next, with the stateful collectors'
+    states."""
 
     X: Any
     lw: Any
     logLt: Any
     log_mean_w: Any
+    col_states: Any = ()
 
 
 def _serve(X, z, N, want_anc):
@@ -153,9 +161,11 @@ def _step0(fk, gen, N, ESSrmin, summaries, need_gen):
     A = torch.arange(N, device=lw.device) if need_gen else None
     view = StepView(fk=fk, t=0, X=X, Xp=X, A=A, wgts=wgts, aux=wgts,
                     rs_flag=False, logLt=logLt, loglt=logLt, N=N,
-                    ESSrmin=ESSrmin)
-    outs = summaries.collect(view) if summaries is not None else ()
-    return _Carry(X=X, lw=lw, logLt=logLt, log_mean_w=wgts.log_mean), view, outs
+                    ESSrmin=ESSrmin, gen=gen)
+    states, outs = ((), ()) if summaries is None else summaries.init_step(view)
+    carry = _Carry(X=X, lw=lw, logLt=logLt, log_mean_w=wgts.log_mean,
+                   col_states=states)
+    return carry, view, outs
 
 
 def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
@@ -174,7 +184,7 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     wgts = rs.Weights(lw)
     pre_view = StepView(fk=fk, t=t, X=X, Xp=X, A=None, wgts=wgts, aux=wgts,
                         rs_flag=None, logLt=carry.logLt, loglt=None, N=N,
-                        ESSrmin=ESSrmin)
+                        ESSrmin=ESSrmin, gen=gen)
     rs_flag = bool(fk.time_to_resample(pre_view))   # the step's host sync
     if rs_flag:
         if scheme in rs.rs_counts_funcs:
@@ -197,10 +207,11 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     logLt = carry.logLt + loglt
     view = StepView(fk=fk, t=t, X=X_new, Xp=Xp, A=A, wgts=new_wgts,
                     aux=wgts, rs_flag=rs_flag, logLt=logLt, loglt=loglt,
-                    N=N, ESSrmin=ESSrmin)
-    outs = summaries.collect(view) if summaries is not None else ()
+                    N=N, ESSrmin=ESSrmin, gen=gen)
+    states, outs = ((), ()) if summaries is None else summaries.step(
+        view, carry.col_states)
     carry = _Carry(X=X_new, lw=lw_new, logLt=logLt,
-                   log_mean_w=new_wgts.log_mean)
+                   log_mean_w=new_wgts.log_mean, col_states=states)
     return carry, view, outs
 
 
@@ -221,9 +232,15 @@ class SMC:
 
     ``verbose=True`` prints ``str(self)`` (``fk.summary_format``) after
     each step, which reads the ESS on the host: one more sync a step.
-    ``qmc`` and ``store_history`` exist in the JAX package and are not
-    ported yet: asking for them raises ``NotImplementedError`` (ROADMAP
-    queue A).
+
+    ``store_history``: ``False``; ``True``, and after the run ``pf.hist``
+    is a :class:`smoothing.ParticleHistory` of the stacked frames ``X``
+    (T, N, ...), ``A`` (T, N) int64 and ``lw`` (T, N); an int k, the last k
+    frames (:class:`smoothing.RollingParticleHistory`); or a callable
+    ``t -> bool``, the frames at those times
+    (:class:`smoothing.PartialParticleHistory`).  Frames stay on the device
+    and add no host sync.  ``qmc`` exists in the JAX package and is not
+    ported yet: asking for it raises ``NotImplementedError`` (ROADMAP A.8).
     """
 
     def __init__(self, fk=None, N=100, seed=0, generator=None, device=None,
@@ -232,10 +249,6 @@ class SMC:
         if qmc:
             raise NotImplementedError(
                 "SQMC is not ported to particles_tpu_torch yet (ROADMAP A.8)")
-        if store_history:
-            raise NotImplementedError(
-                "store_history (particle history and genealogy) is not "
-                "ported to particles_tpu_torch yet (ROADMAP A.3)")
         if resampling not in rs.rs_funcs:
             raise ValueError(f"{resampling} is not a valid resampling scheme")
         if getattr(fk, "is_sampler", False):
@@ -267,6 +280,9 @@ class SMC:
         self.verbose = verbose
         self.summaries = (None if collect == "off"
                           else collectors.Summaries(collect))
+        self._hist_obj = smoothing.generate_hist_obj(store_history)
+        self.hist = None
+        self._finalize_history()
 
         self.t = 0
         self.rs_flag = False
@@ -286,7 +302,9 @@ class SMC:
 
     @property
     def _need_gen(self):
-        return self.summaries is not None and self.summaries.needs_genealogy
+        return (self._hist_obj is not None
+                or (self.summaries is not None
+                    and self.summaries.needs_genealogy))
 
     def _install_view(self, view, carry):
         self._carry = carry
@@ -294,11 +312,18 @@ class SMC:
         self.wgts, self.aux = view.wgts, view.aux
         self.rs_flag = view.rs_flag
         self.logLt, self.loglt = view.logLt, view.loglt
+        if self._hist_obj is not None:
+            self._hist_obj.save(self)
+
+    def _finalize_history(self):
+        if self._hist_obj is not None:
+            self.hist = self._hist_obj.finalize(self.fk)
 
     def __next__(self):
         if self.fk.done(self):
             if self.summaries is not None:
                 self.summaries.finalize_lists()
+            self._finalize_history()
             raise StopIteration
         if self.t == 0:
             carry, view, outs = _step0(self.fk, self.gen, self.N,
@@ -333,13 +358,16 @@ class SMCResult:
     """Light-weight result of one run inside :func:`multiSMC`: ``logLt``,
     the final log-weights ``lw`` (and ``wgts``, ``W`` from them), each
     collector's record as an attribute (``summaries`` is the result
-    itself, so ``res.summaries.ESSs`` reads as for an SMC), and
-    ``cpu_time``, the run's wall time."""
+    itself, so ``res.summaries.ESSs`` reads as for an SMC), ``cpu_time``,
+    the run's wall time, and ``hist``, the run's history (None unless
+    ``store_history`` was given)."""
 
-    def __init__(self, logLt, summaries_dict, lw=None, cpu_time=None):
+    def __init__(self, logLt, summaries_dict, lw=None, cpu_time=None,
+                 hist=None):
         self.logLt = logLt
         self.lw = lw
         self.cpu_time = cpu_time
+        self.hist = hist
         for name, val in summaries_dict.items():
             setattr(self, name, val)
         self.summaries = self
@@ -385,7 +413,7 @@ def multiSMC(fk=None, N=100, qmc=False, resampling="systematic", ESSrmin=0.5,
                   {c.summary_name: getattr(pf.summaries, c.summary_name)
                    for c in pf.summaries._collectors})
             res = SMCResult(pf.logLt, sm, lw=pf.wgts.lw,
-                            cpu_time=pf.cpu_time)
+                            cpu_time=pf.cpu_time, hist=pf.hist)
             entry = {k: labels[k] for k in varying}
             entry["run"] = r
             entry["output"] = res if out_func is None else out_func(res)

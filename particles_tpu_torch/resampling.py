@@ -554,7 +554,7 @@ def idiotic(gen, W, M):
     return multinomial_once(gen, W).reshape(1).repeat(M)
 
 
-def _pinned_cdf(W):
+def pinned_cdf(W):
     """The monotone CDF (B3) with its top pinned to 1, above every uniform
     draw."""
     cs, _ = _normalised_cumsum_mono(W)
@@ -569,15 +569,22 @@ def multinomial_iid(gen, W, M=None):
     JAX package's sort-serve-unsort is not carried over."""
     M = W.shape[0] if M is None else M
     u = torch.rand(M, generator=gen, device=W.device)
-    return ancestors_by_su(u, _pinned_cdf(W))
+    return ancestors_by_su(u, pinned_cdf(W))
 
 
 def multinomial_iid_values(gen, W, cols, M=None):
     """:func:`multinomial_iid` plus the served values ``[c[A] for c in
     cols]``, in one B4 launch: returns ``(A, values)``."""
     M = W.shape[0] if M is None else M
-    u = torch.rand(M, generator=gen, device=W.device)
-    values, A = repeat_cols_su(u, _pinned_cdf(W), M, cols, want_anc=True)
+    return draw_by_cdf(gen, pinned_cdf(W), cols, M)
+
+
+def draw_by_cdf(gen, cs, cols, M):
+    """:func:`multinomial_iid_values` on a CDF already built by
+    :func:`pinned_cdf` (B4 alone), for callers that draw from the same
+    weights more than once."""
+    u = torch.rand(M, generator=gen, device=cs.device)
+    values, A = repeat_cols_su(u, cs, M, cols, want_anc=True)
     return A, values
 
 

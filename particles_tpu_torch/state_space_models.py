@@ -49,6 +49,16 @@ class StateSpaceModel(KwParams):
         """Law of Y_t given X_t = x (and possibly X_{t-1} = xp)."""
         raise NotImplementedError(self._error_msg("PY"))
 
+    def upper_bound_log_pt(self, t):
+        """An upper bound of log p(x_t | x_{t-1}), for the rejection
+        smoothers (``backward_sampling_reject``, ``Paris``)."""
+        raise NotImplementedError(self._error_msg("upper_bound_log_pt"))
+
+    def add_func(self, t, xp, x):
+        """The additive function psi_t(x_{t-1}, x_t) of the on-line
+        smoothers (called with ``xp=None`` at t=0)."""
+        raise NotImplementedError(self._error_msg("add_func"))
+
     def simulate_given_x(self, gen, x):
         """Observations given a state trajectory (stacked (T, ...))."""
         T = x.shape[0]
@@ -109,3 +119,9 @@ class Bootstrap(FeynmanKac):
     def logpt(self, t, xp, x):
         """Log-pdf of X_t | X_{t-1} = xp."""
         return self.ssm.PX(t, xp).logpdf(x)
+
+    def upper_bound_trans(self, t):
+        return self.ssm.upper_bound_log_pt(t)
+
+    def add_func(self, t, xp, x):
+        return self.ssm.add_func(t, xp, x)

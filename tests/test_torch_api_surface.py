@@ -1,0 +1,127 @@
+"""The PyTorch port's public surface against the JAX package's.
+
+``REFERENCE_SURFACE`` (``tests/test_api_surface.py``) lists every public
+name of the JAX package by module.  Here each name is either ``PORTED``
+(it must exist in the same module of ``particles_tpu_torch``) or
+``MISSING`` (it must not exist yet), so that each slice of the port moves
+names from the second list to the first.
+"""
+
+import importlib
+
+import pytest
+
+from test_api_surface import REFERENCE_SURFACE
+
+PORTED = {
+    "particles_tpu": ["SMC", "FeynmanKac", "multiSMC"],
+    "particles_tpu.collectors": [
+        "Collector", "Moments", "Fixed_lag_smooth", "Online_smooth_naive",
+        "Online_smooth_ON2", "Paris",
+    ],
+    "particles_tpu.distributions": [
+        "ProbDist", "LocScaleDist", "Normal", "MvNormal",
+    ],
+    "particles_tpu.kalman": [
+        "MeanAndCov", "predict_step", "filter_step", "smoother_step",
+        "MVLinearGauss", "MVLinearGauss_Guarniero_etal", "LinearGauss",
+        "Kalman",
+    ],
+    "particles_tpu.resampling": [
+        "Weights", "exp_and_normalise", "essl", "log_sum_exp",
+        "wmean_and_var", "resampling", "multinomial", "residual",
+        "stratified", "systematic", "ssp", "killing", "idiotic",
+        "inverse_cdf", "uniform_spacings", "MultinomialQueue",
+    ],
+    "particles_tpu.smoothing": [
+        "ParticleHistory", "PartialParticleHistory",
+        "RollingParticleHistory", "generate_hist_obj", "smoothing_worker",
+    ],
+    "particles_tpu.state_space_models": ["StateSpaceModel", "Bootstrap"],
+    "particles_tpu.utils": ["timer"],
+    "particles_tpu.variance_estimators": ["Var", "Var_logLt",
+                                          "Lag_based_var"],
+}
+
+# by ROADMAP item: A.5 the model zoo, A.8 SQMC, A.9 samplers, A.10 the
+# outer loops, A.12 the engine and numerics remainder
+MISSING = {
+    "particles_tpu": ["SQMC"],
+    "particles_tpu.binary_smc": [
+        "Bernoulli", "NestedLogistic", "BinaryMetropolis",
+        "chol_and_friends", "VariableSelection", "BayesianVS",
+        "BayesianVS_gprior", "all_binary_words",
+    ],
+    "particles_tpu.datasets": [
+        "GBP_vs_USD_9798", "Nutria", "Neuro", "Pima", "Eeg", "Sonar",
+        "Boston", "Concrete", "Liver",
+    ],
+    "particles_tpu.distributions": [
+        "Logistic", "Laplace", "Beta", "Gamma", "InvGamma", "LogNormal",
+        "Uniform", "Student", "FlatNormal", "Dirac", "TruncNormal",
+        "DiscreteDist", "Poisson", "Binomial", "Geometric",
+        "NegativeBinomial", "Categorical", "DiscreteUniform",
+        "TransformedDist", "LinearD", "LogD", "LogitD", "Mixture",
+        "MixMissing", "Dirichlet", "VaryingCovNormal", "IndepProd", "IID",
+        "Cond", "StructDist",
+    ],
+    "particles_tpu.hilbert": ["hilbert_sort", "Hilbert_to_int", "invlogit"],
+    "particles_tpu.hmm": ["HMM", "GaussianHMM", "BaumWelch"],
+    "particles_tpu.mcmc": [
+        "MCMC", "VanishCovTracker", "GenericRWHM", "BasicRWHM", "PMMH",
+        "CSMC", "GenericGibbs", "ParticleGibbs",
+    ],
+    "particles_tpu.nested": [
+        "NestedParticles", "NestedSampling", "Nested_RWmoves",
+        "NestedSamplingSMC", "MeanCovTracker", "unif_minus_one",
+    ],
+    "particles_tpu.resampling": ["wquantiles"],
+    "particles_tpu.rqmc": ["sobol", "halton", "latin", "safe_generate"],
+    "particles_tpu.smc_samplers": list(
+        REFERENCE_SURFACE["particles_tpu.smc_samplers"]),
+    "particles_tpu.state_space_models": [
+        "GuidedPF", "APFMixin", "AuxiliaryPF", "AuxiliaryBootstrap",
+        "StochVol", "StochVolLeverage", "Gordon_etal", "BearingsOnly",
+        "DiscreteCox", "MVStochVol", "ThetaLogistic",
+    ],
+    "particles_tpu.utils": ["multiplexer", "add_to_dict", "cartesian_lists",
+                            "distribute_work", "worker", "seeder"],
+    "particles_tpu.variance_mcmc": [
+        "MCMC_variance", "AutoCovarianceCalculator",
+        "autocovariance_fft_single", "default_collector",
+    ],
+}
+
+
+def _port_module(name):
+    """The port's module of the JAX module ``name``, or None."""
+    try:
+        return importlib.import_module(
+            name.replace("particles_tpu", "particles_tpu_torch", 1))
+    except ModuleNotFoundError:
+        return None
+
+
+@pytest.mark.parametrize("module_name", sorted(REFERENCE_SURFACE))
+def test_lists_split_the_reference_surface(module_name):
+    ported = PORTED.get(module_name, [])
+    missing = MISSING.get(module_name, [])
+    assert not set(ported) & set(missing)
+    assert sorted(ported + missing) == sorted(REFERENCE_SURFACE[module_name])
+
+
+@pytest.mark.parametrize("module_name", sorted(PORTED))
+def test_ported_names_exist(module_name):
+    mod = _port_module(module_name)
+    assert mod is not None, module_name
+    absent = [n for n in PORTED[module_name] if not hasattr(mod, n)]
+    assert not absent, f"{module_name}: {absent}"
+
+
+@pytest.mark.parametrize("module_name", sorted(MISSING))
+def test_missing_names_are_not_there_yet(module_name):
+    """A name that the port gains moves to ``PORTED``."""
+    mod = _port_module(module_name)
+    present = ([] if mod is None else
+               [n for n in MISSING[module_name] if hasattr(mod, n)])
+    assert not present, f"{module_name}: move {present} to PORTED"

@@ -581,10 +581,15 @@ def test_every_scheme_on_the_card(dev):
 def test_step_syncs_only_on_the_decision(dev):
     """The step's one host sync is the resampling decision: with the
     decision returned as a host bool, whole resampling steps of every
-    scheme run with synchronising operations made errors.  The
-    sequential SSP below 8192 particles is the stated exception, so N is
-    above it (the tree pairing)."""
+    scheme run with synchronising operations made errors, and so does the
+    end of the run (the summaries and the history stacked).  Storing the
+    history (all of it, or a window of k frames) and a collector of the
+    genealogy add no sync.  The sequential SSP below 8192 particles is the
+    stated exception, so N is above it (the tree pairing)."""
+    from particles_tpu_torch import collectors as col
     from particles_tpu_torch import resampling as rs
+    from particles_tpu_torch import smoothing
+    from particles_tpu_torch import variance_estimators as ve
 
     class Always(ssms.Bootstrap):
         def time_to_resample(self, smc):
@@ -593,15 +598,75 @@ def test_step_syncs_only_on_the_decision(dev):
     y = torch.randn(4, device=dev)
     fk = Always(ssm=kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2),
                 data=y)
+    options = [{}, {"store_history": True}, {"store_history": 2},
+               {"collect": [col.Fixed_lag_smooth(lag=2), ve.Var()]}]
     for scheme in rs.rs_funcs:
-        pf = SMC(fk=fk, N=3 * rs._SSP_BLOCKED_MIN, resampling=scheme,
-                 seed=0)
-        next(pf)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        for opts in options:
+            pf = SMC(fk=fk, N=3 * rs._SSP_BLOCKED_MIN, resampling=scheme,
+                     seed=0, **opts)
             next(pf)
-            next(pf)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        assert pf.t == 3 and pf.rs_flag is True, scheme
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in pf:
+                    pass
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert pf.t == 4 and pf.rs_flag is True, (scheme, opts)
+            if opts.get("store_history") is True:
+                assert isinstance(pf.hist, smoothing.ParticleHistory)
+                assert pf.hist.A.shape == (4, pf.N)
+                assert pf.hist.A.dtype == torch.int64
+            elif "store_history" in opts:
+                assert pf.hist.T == 2
+            else:
+                assert pf.A is not None or "collect" not in opts
+
+
+def test_smoothers_draw_through_the_kernels(dev):
+    """The history, the backward passes and PaRIS on the card: B2 returns
+    the ancestors the history holds, each set of weights drawn from is one
+    B3 launch (its CDF), and each draw from it one B4 launch."""
+    from particles_tpu_torch import collectors as col
+    from particles_tpu_torch import resampling as rs
+
+    class LGsmooth(kalman.LinearGauss):
+        def add_func(self, t, xp, x):
+            return x
+
+    ssm = LGsmooth(rho=0.9, sigmaX=1.0, sigmaY=0.3)
+    y = torch.from_numpy(np.random.default_rng(0).normal(size=12)
+                         .astype(np.float32)).to(dev)
+    fk = ssms.Bootstrap(ssm=ssm, data=y)
+    N = 4096
+    b2 = ops.repeat_cols.launches
+    pf = SMC(fk=fk, N=N, seed=1, store_history=True,
+             collect=[col.Paris(Nparis=2, max_trials=8)])
+    pf.run()
+    n_rs = int(pf.summaries.rs_flags.sum())
+    assert ops.repeat_cols.launches - b2 == n_rs
+    A = pf.hist.A
+    assert A.device == dev and A.dtype == torch.int64 and A.shape == (12, N)
+    for t in range(1, 12):
+        if pf.summaries.rs_flags[t]:
+            assert bool((A[t, 1:] >= A[t, :-1]).all())
+    assert torch.isfinite(pf.summaries.paris).all()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for name, call, cdfs, draws in (
+            ("mcmc", lambda: pf.hist.backward_sampling_mcmc(gen, N),
+             lambda: 12, lambda: 12),
+            ("reject", lambda: pf.hist.backward_sampling_reject(
+                gen, N, max_trials=8), lambda: 12,
+             lambda: 1 + sum(pf.hist.rounds)),
+            ("ON2", lambda: pf.hist.backward_sampling_ON2(gen, 512),
+             lambda: 1, lambda: 1)):
+        b3 = ops.normalised_cumsum_exact.launches
+        b4 = ops.repeat_cols_su.launches
+        paths = call()
+        n3 = ops.normalised_cumsum_exact.launches - b3
+        n4 = ops.repeat_cols_su.launches - b4
+        assert (n3, n4) == (cdfs(), draws()), (name, n3, n4)
+        assert paths.device == dev and torch.isfinite(paths).all(), name
+    W = pf.hist.wgts.W
+    A1, (v,) = rs.multinomial_iid_values(gen, W, [pf.hist.X[-1]], N)
+    assert torch.equal(v, pf.hist.X[-1][A1])

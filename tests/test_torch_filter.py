@@ -255,9 +255,8 @@ def test_genealogy_collector_gets_ancestors():
 
 def test_unported_options_raise():
     _, tfk = _models(_simulate(5, 5))
-    for kw in ({"qmc": True}, {"store_history": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            core.SMC(fk=tfk, N=64, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        core.SMC(fk=tfk, N=64, qmc=True)
     with pytest.raises(ValueError):
         core.SMC(fk=tfk, N=64, resampling="nonsense")
 
@@ -268,11 +267,19 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
         core.SMC(fk=APF(ssm=tfk.ssm, data=tfk.data), N=64)
 
+    # history (A.3) and stateful collectors (A.6) are ported now: they run
     class Stateful(collectors.Collector):
         stateful = True
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        core.SMC(fk=tfk, N=64, collect=[Stateful()])
+        def init(self, view):
+            return 0, view.t
+
+        def step(self, view, state):
+            return state + 1, state + 1
+
+    pf = core.SMC(fk=tfk, N=64, store_history=True, collect=[Stateful()])
+    pf.run()
+    assert pf.hist.T == 5 and pf.summaries.stateful.tolist() == list(range(5))
     off = core.SMC(fk=tfk, N=64, collect="off")
     off.run()
     assert off.summaries is None and np.isfinite(float(off.logLt))
