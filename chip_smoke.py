@@ -122,9 +122,36 @@ not 0 and no result line is printed.  It exits with an error at once when
     weights and particles (B1 to B4), ``Online_smooth_ON2``'s and the
     variance estimators' (B1, B2).  ms a step with each collector beside
     the filter alone, and PaRIS's rounds a step.
+14. The guided and auxiliary filters and the zoo, through ``SMC`` and
+    ``multiSMC``: ``GuidedPF``, ``AuxiliaryPF`` and ``AuxiliaryBootstrap``
+    on phase 4's model and data (N = 2^20, T = 1000, ESSrmin = 0.5), each
+    logLt within 0.5 of the float64 Kalman logLt; ``Bootstrap`` on a
+    three-state ``GaussianHMM`` (N = 2^20, T = 1000), within 0.5 of the
+    float64 ``BaumWelch`` logLt; ``StochVol()`` at the JAX package's APF
+    shape (N = 2^20, T = 100, ESSrmin = 1.1, data simulated from a numpy
+    seed), ``AuxiliaryPF`` and ``AuxiliaryBootstrap`` each within 5 sd of
+    ``Bootstrap`` (each sd the spread of the filter's logLt over 8 seeds);
+    on data with a large observation (ROADMAP C.7: simulated on the CPU
+    from generator seed 0, |y| 2.41), where an auxiliary run now and then
+    collapses in both packages, the median of 8 ``AuxiliaryPF`` runs
+    within 5 sd of the median of 8 ``Bootstrap`` runs (the sd the hypot of
+    the bootstrap's and AuxiliaryPF's 1.4826 MAD), ``AuxiliaryBootstrap``
+    recorded.
+    In each of these runs B1 and B2 launched once a resampling step and no
+    other kernel; B1 and B2 held to their plain versions (phases 2 and
+    3's tolerances) on the weights B1 got, the auxiliary ones for an APF,
+    and the particles B2 moved, at t = 1, T/2 and T - 1 (the HMM's int64
+    states among them), and on ``BearingsOnly``'s (N, 4) rows.  Every
+    other zoo model (``StochVol``, ``StochVolLeverage``, ``Gordon_etal``,
+    ``BearingsOnly``, ``DiscreteCox``, ``MVStochVol``, ``ThetaLogistic``,
+    and the guided or auxiliary filters of those with proposals) at N =
+    2^16, T = 100 through ``multiSMC`` over the six schemes: logLt finite,
+    each kernel launched once a resampling step in its scheme's
+    combination.  ms a step of a warm run beside phase 4's.
 
 Then the kernels line (with each kernel's launches on the smoothing path,
-``launches_smoothing``) and the result line.
+``launches_smoothing``, and on phase 14's runs, ``launches_zoo``) and the
+result line.
 """
 
 import json
@@ -174,6 +201,21 @@ SMOOTH_SD = {"fixed_lag": 55.3, "online_naive": 93.4, "paris": 4.5,
              "ffbs_mcmc": 11.3, "ffbs_reject": 10.5, "two_filter_ON": 10.5,
              "online_ON2": 3.0, "ffbs_ON2": 9.6, "two_filter_ON2": 9.7}
 SMOOTH_SDS = 5
+# phase 14: the guided and auxiliary filters and the zoo.  The Gaussian
+# HMM's parameters (the JAX class has no defaults), StochVol at the JAX
+# package's APF shape (bench.py: N = 2^20, T = 100, ESSrmin = 1.1) with
+# the sd of each filter's logLt from SV_SEEDS seeds, every other zoo model
+# at N_ZOO, T_ZOO through multiSMC
+HMM_PARAMS = {"trans_mat": [[0.9, 0.05, 0.05], [0.1, 0.8, 0.1],
+                            [0.05, 0.15, 0.8]],
+              "mus": [-1.0, 0.5, 2.0], "sigmas": [0.5, 0.7, 0.4]}
+T_SV = 100
+SV_SEEDS = 8
+SV_SDS = 5
+N_ZOO = 2 ** 16
+T_ZOO = 100
+MV_SV = {"mu": [-1.0, -0.5], "covX": [[0.1, 0.02], [0.02, 0.05]],
+         "corY": [[1.0, 0.4], [0.4, 1.0]], "F": [[0.9, 0.05], [0.0, 0.85]]}
 # the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
 # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -856,6 +898,240 @@ def phase_online(torch, dev, smi):
     return all_launches, checks
 
 
+def _simulate_sv(model, T):
+    """Observations of the StochVol ``model`` (its mu, rho and sigma) from
+    a numpy seed, the same on every device."""
+    mu, rho, sigma = model.mu, model.rho, model.sigma
+    rng = np.random.default_rng(1)
+    x = mu + sigma / np.sqrt(1 - rho ** 2) * rng.normal()
+    y = np.empty(T)
+    for t in range(T):
+        if t > 0:
+            x = mu + rho * (x - mu) + sigma * rng.normal()
+        y[t] = np.exp(0.5 * x) * rng.normal()
+    return y.astype(np.float32)
+
+
+def _simulate_hmm(T):
+    """Observations of phase 14's Gaussian HMM from a numpy seed."""
+    rng = np.random.default_rng(1)
+    P = np.asarray(HMM_PARAMS["trans_mat"], np.float64)
+    x = rng.integers(len(P))
+    y = np.empty(T)
+    for t in range(T):
+        if t > 0:
+            x = rng.choice(len(P), p=P[x])
+        y[t] = HMM_PARAMS["mus"][x] + HMM_PARAMS["sigmas"][x] * rng.normal()
+    return y.astype(np.float32)
+
+
+def phase_zoo(torch, dev, smi, y, kf_logLt, main_ms):
+    """Phase 14: the guided and auxiliary filters and the model zoo."""
+    from particles_tpu_torch import hmm, kalman, ops
+    from particles_tpu_torch import state_space_models as ssms
+    from particles_tpu_torch.core import SMC, multiSMC
+
+    all_launches, checks = {}, []
+    resampling_kernels = ("systematic_z", "repeat_by_z")
+
+    def full_width(tag, fk, T, ESSrmin, seed):
+        """A run through the iterator protocol, the counts zeroed just
+        before it and read just after: B1 and B2 once a resampling step
+        and no other kernel.  The weights B1 got (the auxiliary ones for
+        an APF) and the particles B2 moved, at t = 1, T/2 and T - 1, are
+        checked against the plain versions afterwards; then a warm run of
+        the same filter is timed."""
+        _zero_counts(ops)
+        pf = SMC(fk=fk, N=N_MAIN, seed=seed, ESSrmin=ESSrmin)
+        inputs = {}
+        while pf.t < T:
+            X = pf.X
+            next(pf)
+            if pf.t - 1 in (1, T // 2, T - 1):
+                inputs[pf.t - 1] = (pf.aux.lw, X)
+        for _ in pf:        # the end of the run: the summaries stacked
+            pass
+        launches = _read_counts(ops)
+        all_launches[f"phase 14 {tag}"] = launches
+        n_rs = int(pf.summaries.rs_flags.sum())
+        logLt = float(pf.logLt)
+        _check(np.isfinite(logLt), f"phase 14 {tag}: logLt {logLt}")
+        for name, n in launches.items():
+            want = n_rs if name in resampling_kernels else 0
+            _check(n == want and n_rs > 0, f"phase 14 {tag}: {name} "
+                   f"launched {n} times, {n_rs} resampling steps")
+        for t, (lw, X) in inputs.items():
+            checks.append(check_path_kernels(
+                torch, dev, f"phase 14 {tag} t={t}", lw, X, (), seed=t))
+        warm = SMC(fk=fk, N=N_MAIN, seed=seed + 1, ESSrmin=ESSrmin)
+        warm.run()
+        return {"logLt": logLt, "resampling_steps": n_rs,
+                "launches": launches, "logLt_warm_run": float(warm.logLt),
+                "ms_per_step": 1000.0 * warm.cpu_time / T}
+
+    # the main path's model and data with the guided and auxiliary filters
+    ssm = kalman.LinearGauss(rho=RHO, sigmaX=SIGX, sigmaY=SIGY)
+    data = torch.from_numpy(y).to(dev)
+    lg = {}
+    for cls in ("GuidedPF", "AuxiliaryPF", "AuxiliaryBootstrap"):
+        rec = full_width(f"LinearGauss {cls}",
+                         getattr(ssms, cls)(ssm=ssm, data=data), T_MAIN,
+                         0.5, 40)
+        for key in ("logLt", "logLt_warm_run"):
+            _check(abs(rec[key] - kf_logLt) < LOGLT_TOL,
+                   f"phase 14 LinearGauss {cls}: {key} {rec[key]}, Kalman "
+                   f"{kf_logLt}")
+        rec.update(abs_diff=abs(rec["logLt"] - kf_logLt),
+                   ratio_to_main_path=rec["ms_per_step"] / main_ms)
+        lg[cls] = rec
+
+    # a Gaussian HMM against Baum-Welch, the states int64 particles
+    y_hmm = _simulate_hmm(T_MAIN)
+    model = hmm.GaussianHMM(**{k: torch.tensor(v, device=dev)
+                               for k, v in HMM_PARAMS.items()})
+    exact = float(hmm.BaumWelch(hmm=hmm.GaussianHMM(**{
+        k: torch.tensor(v, dtype=torch.float64, device=dev)
+        for k, v in HMM_PARAMS.items()}), data=torch.from_numpy(y_hmm)).logLt)
+    rec = full_width("GaussianHMM Bootstrap", ssms.Bootstrap(
+        ssm=model, data=torch.from_numpy(y_hmm).to(dev)), T_MAIN, 0.5, 50)
+    for key in ("logLt", "logLt_warm_run"):
+        _check(abs(rec[key] - exact) < LOGLT_TOL,
+               f"phase 14 GaussianHMM: {key} {rec[key]}, BaumWelch {exact}")
+    rec.update(baum_welch_logLt=exact, abs_diff=abs(rec["logLt"] - exact),
+               ratio_to_main_path=rec["ms_per_step"] / main_ms)
+    hmm_rec = rec
+
+    # StochVol at the JAX package's APF shape: N = 2^20, T = 100, always
+    # resampling; the sd of each filter's logLt from its spread over seeds
+    sv_model = ssms.StochVol()
+    y_sv = torch.from_numpy(_simulate_sv(sv_model, T_SV)).to(dev)
+    sv = {}
+    for cls in ("Bootstrap", "AuxiliaryPF", "AuxiliaryBootstrap"):
+        fk = getattr(ssms, cls)(ssm=sv_model, data=y_sv)
+        rec = full_width(f"StochVol {cls}", fk, T_SV, 1.1, 60)
+        runs = [rec["logLt"]]
+        for s in range(1, SV_SEEDS):
+            pf = SMC(fk=fk, N=N_MAIN, seed=60 + 10 * s, ESSrmin=1.1)
+            pf.run()
+            runs.append(float(pf.logLt))
+        _check(np.all(np.isfinite(runs)), f"phase 14 StochVol {cls}: {runs}")
+        rec.update(logLt_seeds=runs, sd=float(np.std(runs, ddof=1)))
+        sv[cls] = rec
+    boot = sv["Bootstrap"]
+    for cls in ("AuxiliaryPF", "AuxiliaryBootstrap"):
+        rec = sv[cls]
+        sd = float(np.hypot(rec["sd"], boot["sd"]))
+        rec["diff_to_bootstrap"] = rec["logLt"] - boot["logLt"]
+        rec["diff_in_sd"] = rec["diff_to_bootstrap"] / sd
+        _check(abs(rec["diff_in_sd"]) <= SV_SDS,
+               f"phase 14 StochVol {cls}: {rec['diff_in_sd']} sd from the "
+               "bootstrap filter")
+
+    # ROADMAP C.7's data (the model simulated on the CPU from generator
+    # seed 0, |y| 2.41 at t = 1).  There a run of an auxiliary filter now
+    # and then collapses far below the bootstrap filter, in the JAX
+    # package too (AuxiliaryPF: 5 of 64 runs at N = 2^20, AuxiliaryBootstrap
+    # every run), so AuxiliaryPF is held by its median: within SV_SDS of
+    # the bootstrap filter's median, in units of the hypot of the
+    # bootstrap's sd and AuxiliaryPF's robust sd (1.4826 MAD).
+    # AuxiliaryBootstrap is recorded, not checked.
+    _, y_hard = sv_model.simulate(torch.Generator().manual_seed(0), T_SV)
+    hard = {"largest_abs_y": float(y_hard.abs().max())}
+    for cls in ("Bootstrap", "AuxiliaryPF", "AuxiliaryBootstrap"):
+        fk = getattr(ssms, cls)(ssm=sv_model, data=y_hard.to(dev))
+        runs = []
+        for s in range(SV_SEEDS):
+            pf = SMC(fk=fk, N=N_MAIN, seed=90 + s, ESSrmin=1.1)
+            pf.run()
+            runs.append(float(pf.logLt))
+        _check(np.all(np.isfinite(runs)),
+               f"phase 14 StochVol C.7 data {cls}: {runs}")
+        med = float(np.median(runs))
+        hard[cls] = {"logLt_seeds": runs, "median": med,
+                     "sd": float(np.std(runs, ddof=1)),
+                     "robust_sd": 1.4826 * float(np.median(
+                         np.abs(np.asarray(runs) - med)))}
+    boot = hard["Bootstrap"]
+    for rec in hard.values():
+        if isinstance(rec, dict):
+            rec["collapsed"] = sum(v < boot["median"] - 1.0
+                                   for v in rec["logLt_seeds"])
+    apf = hard["AuxiliaryPF"]
+    apf["median_diff_in_sd"] = ((apf["median"] - boot["median"])
+                                / float(np.hypot(boot["sd"],
+                                                 apf["robust_sd"])))
+    _check(abs(apf["median_diff_in_sd"]) <= SV_SDS,
+           f"phase 14 StochVol C.7 data AuxiliaryPF: median "
+           f"{apf['median_diff_in_sd']} sd from the bootstrap filter's")
+    sv["c7_data"] = hard
+
+    # every other zoo model at N_ZOO through multiSMC over the six schemes
+    zoo_models = {
+        "StochVol": ssms.StochVol(),
+        "StochVolLeverage": ssms.StochVolLeverage(phi=-0.5),
+        "Gordon_etal": ssms.Gordon_etal(),
+        "BearingsOnly": ssms.BearingsOnly(),
+        "DiscreteCox": ssms.DiscreteCox(),
+        "MVStochVol": ssms.MVStochVol(**{
+            k: torch.tensor(v, device=dev) for k, v in MV_SV.items()}),
+        "ThetaLogistic": ssms.ThetaLogistic(),
+    }
+    gen = torch.Generator(device=dev).manual_seed(70)
+    fks = {}
+    for name, m in zoo_models.items():
+        _, y_m = m.simulate(gen, T_ZOO)
+        fks[name] = ssms.Bootstrap(ssm=m, data=y_m)
+        if name in ("StochVol", "StochVolLeverage", "ThetaLogistic"):
+            fks[f"{name} GuidedPF"] = ssms.GuidedPF(ssm=m, data=y_m)
+        if name == "StochVol":
+            fks[f"{name} AuxiliaryPF"] = ssms.AuxiliaryPF(ssm=m, data=y_m)
+    snaps = []
+
+    def snapshot(res):
+        snaps.append(_read_counts(ops))
+        return res
+
+    _zero_counts(ops)
+    snaps.append(_read_counts(ops))
+    runs = multiSMC(fk=fks, N=N_ZOO, resampling=SCHEMES, nruns=1,
+                    out_func=snapshot)
+    zoo = {}
+    for k, entry in enumerate(runs):
+        scheme, res = entry["resampling"], entry["output"]
+        tag = f"{entry['fk']} {scheme}"
+        n_rs = int(res.rs_flags.sum())
+        logLt = float(res.logLt)
+        launched = {name: snaps[k + 1][name] - snaps[k][name]
+                    for name in ops.KERNELS}
+        _check(np.isfinite(logLt), f"phase 14 {tag}: logLt {logLt}")
+        for name, n in launched.items():
+            want = n_rs if name in SCHEME_KERNELS[scheme] else 0
+            _check(n == want, f"phase 14 {tag}: {name} launched {n} times, "
+                              f"{n_rs} resampling steps")
+        zoo.setdefault(entry["fk"], {})[scheme] = {
+            "logLt": logLt, "resampling_steps": n_rs,
+            "ms_per_step": 1000.0 * res.cpu_time / T_ZOO}
+    all_launches["phase 14 zoo multiSMC"] = _read_counts(ops)
+    # BearingsOnly's (N, 4) rows through B1 and B2 (the payload of a run's
+    # last step)
+    pf = SMC(fk=fks["BearingsOnly"], N=N_ZOO, seed=80)
+    pf.run()
+    checks.append(check_path_kernels(torch, dev, "phase 14 BearingsOnly",
+                                     pf.wgts.lw, pf.X, (), seed=80))
+    _emit({"phase": 14, "nvidia_smi": smi, "N": N_MAIN,
+           "main_path_ms_per_step": main_ms,
+           "linear_gauss": {"T": T_MAIN, "ESSrmin": 0.5,
+                            "kalman_logLt": kf_logLt,
+                            "tolerance": LOGLT_TOL, **lg},
+           "gaussian_hmm": {"T": T_MAIN, "K": len(HMM_PARAMS["mus"]),
+                            "tolerance": LOGLT_TOL, **hmm_rec},
+           "stoch_vol": {"T": T_SV, "ESSrmin": 1.1, "seeds": SV_SEEDS,
+                         "tolerance_sd": SV_SDS, **sv},
+           "zoo": {"N": N_ZOO, "T": T_ZOO, "runs": zoo},
+           "kernels_vs_plain": _path_checks_summary(checks)})
+    return all_launches, checks
+
+
 def main():
     import torch
 
@@ -1443,8 +1719,11 @@ def main():
         launched, phase_checks = phase(torch, dev, smi)
         smooth_launches.update(launched)
         checks += phase_checks
+    zoo_launches, zoo_checks = phase_zoo(torch, dev, smi, y, kf_logLt,
+                                         1000.0 * wall / T_MAIN)
+    checks += zoo_checks
     # the largest error against the plain version includes the smoothing
-    # phases' checks on their own inputs
+    # and zoo phases' checks on their own inputs
     path_err = {"systematic_z": "systematic_z_err",
                 "repeat_by_z": "repeat_by_z_err",
                 "normalised_cumsum": "normalised_cumsum_err",
@@ -1452,6 +1731,8 @@ def main():
     for k in kernels:
         k["launches_smoothing"] = {run: n[k["name"]]
                                    for run, n in smooth_launches.items()}
+        k["launches_zoo"] = {run: n[k["name"]]
+                             for run, n in zoo_launches.items()}
         if k["name"] in path_err:
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 c.get(path_err[k["name"]], 0) for c in checks])

@@ -4,14 +4,15 @@ The port of ``particles_tpu`` (JAX, TPU) to PyTorch and hand-written CUDA
 kernels, with the same module names and public surface, slice by slice
 (ROADMAP.md).  This package imports ``torch`` and never ``jax``.
 
-Ported so far: the bootstrap particle filter with every resampling
-scheme — ``SMC``, ``multiSMC``, ``FeynmanKac``,
-``state_space_models.Bootstrap``, ``kalman``, the ``Normal``/``MvNormal``
-distributions, the weight numerics and resampling registries — the
-particle history and off-line smoothers (``smoothing``), the collectors
-with the on-line smoothers, ``variance_estimators``, and the six kernels
-of ``ops``.  Entry points run on
-the current CUDA card unless given ``device="cpu"`` or CPU tensors.
+Ported so far: the particle filters — bootstrap, guided and auxiliary —
+with every resampling scheme (``SMC``, ``multiSMC``, ``FeynmanKac``), the
+model DSL and zoo of ``state_space_models``, every law of
+``distributions``, ``kalman`` and ``hmm`` (the exact oracles), the weight
+numerics and resampling registries, the particle history and off-line
+smoothers (``smoothing``), the collectors with the on-line smoothers,
+``variance_estimators``, the experiment helpers of ``utils``, and the six
+kernels of ``ops``.  Entry points run on the current CUDA card unless
+given ``device="cpu"`` or CPU tensors.
 """
 
 __version__ = "0.1.0"
@@ -23,6 +24,7 @@ _SUBMODULES = (
     "convert",
     "core",
     "distributions",
+    "hmm",
     "kalman",
     "ops",
     "resampling",

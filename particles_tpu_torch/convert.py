@@ -2,13 +2,13 @@
 objects, so that the JAX package and this one can be fed the same model.
 
 Pull the arrays from a JAX model with ``np.asarray(getattr(ssm, k))`` —
-for each ``default_params`` key of a ``LinearGauss``, or ``F``, ``G``,
-``covX``, ``covY``, ``mu0``, ``cov0`` of an ``MVLinearGauss`` — and pass
-them here.  ``history_from_numpy`` carries a run's stacked history
-(``np.asarray`` of a JAX ``pf.hist.X``, ``.A`` and ``.lw``) into the port's
-``ParticleHistory``.  Tensors go to ``device``, by default the current
-CUDA card (with no card, pass ``device="cpu"``).  This module imports no
-JAX.
+for each ``default_params`` key of a zoo model, a ``LinearGauss`` or a
+``GaussianHMM``, or ``F``, ``G``, ``covX``, ``covY``, ``mu0``, ``cov0`` of
+an ``MVLinearGauss`` — and pass them here.  ``history_from_numpy``
+carries a run's stacked history (``np.asarray`` of a JAX ``pf.hist.X``,
+``.A`` and ``.lw``) into the port's ``ParticleHistory``.  Tensors go to
+``device``, by default the current CUDA card (with no card, pass
+``device="cpu"``).  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -16,22 +16,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from particles_tpu_torch import kalman
+from particles_tpu_torch import hmm, kalman
 from particles_tpu_torch import smoothing
 from particles_tpu_torch import state_space_models as ssms
 from particles_tpu_torch.utils import resolve_device
 
 __all__ = ["ssm_from_params", "bootstrap_from_numpy", "history_from_numpy"]
 
-_MODELS = {"LinearGauss": kalman.LinearGauss,
-           "MVLinearGauss": kalman.MVLinearGauss}
+_MODELS = {cls.__name__: cls for cls in (
+    kalman.LinearGauss, kalman.MVLinearGauss,
+    kalman.MVLinearGauss_Guarniero_etal, ssms.StochVol,
+    ssms.StochVolLeverage, ssms.Gordon_etal, ssms.BearingsOnly,
+    ssms.DiscreteCox, ssms.MVStochVol, ssms.ThetaLogistic, hmm.GaussianHMM)}
+# the models whose constructor places its own tensors
+_TAKE_DEVICE = (kalman.MVLinearGauss, kalman.MVLinearGauss_Guarniero_etal)
 
 
 def ssm_from_params(cls_name, params, device=None):
-    """The port's model ``cls_name`` built from ``params`` (a dict of numpy
-    arrays).  Scalar parameters become Python floats (the float32 value
-    exactly, for float32 input); arrays become float32 tensors on
-    ``device``."""
+    """The port's model ``cls_name`` (a zoo model, ``GaussianHMM`` or a
+    Kalman model) built from ``params`` (a dict of numpy arrays).  Scalar
+    parameters become Python numbers (a float32 value exactly, an integer
+    an int); arrays become float32 tensors on ``device``."""
     try:
         cls = _MODELS[cls_name]
     except KeyError:
@@ -45,11 +50,11 @@ def ssm_from_params(cls_name, params, device=None):
             kwargs[k] = None
             continue
         a = np.asarray(v)
-        if a.ndim == 0 and cls is kalman.LinearGauss:
-            kwargs[k] = float(a)
+        if a.ndim == 0:
+            kwargs[k] = a.item()
         else:
             kwargs[k] = torch.tensor(a, dtype=torch.float32, device=device)
-    if cls is kalman.MVLinearGauss:
+    if cls in _TAKE_DEVICE:
         kwargs["device"] = device
     return cls(**kwargs)
 

@@ -13,10 +13,13 @@ versions on the CPU), the others (``killing``, ``idiotic``) gather by
 their ancestors.
 
 Ported: every resampling scheme, adaptive (ESS) or custom
-``time_to_resample``, stateless and stateful collectors, the particle
-history (``store_history``), ``multiSMC`` (one run after another).  Not
-yet: SQMC, auxiliary filters and samplers (ROADMAP queue A); asking for one
-raises ``NotImplementedError``.
+``time_to_resample``, the guided and auxiliary particle filters (an
+auxiliary filter resamples on the auxiliary weights, lw + logeta, and
+resets the weights from ``logeta`` recomputed on the served particles),
+stateless and stateful collectors, the particle history
+(``store_history``), ``multiSMC`` (one run after another).  Not yet: SQMC
+and samplers (ROADMAP queue A); asking for one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -171,29 +174,42 @@ def _step0(fk, gen, N, ESSrmin, summaries, need_gen):
 def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     """One step for t >= 1.
 
-    The resampling decision is taken on the host (one sync); a resampling
+    An auxiliary filter (``fk.isAPF``) first adds ``logeta(t - 1, X)`` to
+    the weights: the decision and the resampling read these auxiliary
+    weights.  The decision is taken on the host (one sync); a resampling
     step serves the particles by the scheme's z-form (sorted-ancestor
     schemes, through B2) or gathers them by its ancestors (``killing``,
-    ``idiotic``), and resets the log-weights to zero.  No scheme reads a
-    device value on the host, except the sequential SSP at N <
-    ``resampling._SSP_BLOCKED_MIN``.  The log-likelihood increment is
+    ``idiotic``), and resets the log-weights: to zero, or for an auxiliary
+    filter to ``log_mean_exp(logeta, lw) - logeta(t - 1, Xp)`` with logeta
+    recomputed on the served particles (no gather of the column).  No
+    scheme reads a device value on the host, except the sequential SSP at
+    N < ``resampling._SSP_BLOCKED_MIN``.  The log-likelihood increment is
     ``log_mean`` of the new weights after resampling, and otherwise its
     difference from the carried ``log_mean``.
     """
     X, lw = carry.X, carry.lw
     wgts = rs.Weights(lw)
-    pre_view = StepView(fk=fk, t=t, X=X, Xp=X, A=None, wgts=wgts, aux=wgts,
+    if fk.isAPF:
+        logetat = fk.logeta(t - 1, X)
+        aux = wgts.add(logetat)
+    else:
+        logetat, aux = None, wgts
+    pre_view = StepView(fk=fk, t=t, X=X, Xp=X, A=None, wgts=wgts, aux=aux,
                         rs_flag=None, logLt=carry.logLt, loglt=None, N=N,
                         ESSrmin=ESSrmin, gen=gen)
     rs_flag = bool(fk.time_to_resample(pre_view))   # the step's host sync
     if rs_flag:
         if scheme in rs.rs_counts_funcs:
-            z = rs.resampling_z(scheme, gen, wgts.W, M=N)
+            z = rs.resampling_z(scheme, gen, aux.W, M=N)
             Xp, A = _serve(X, z, N, need_gen)
         else:
-            A = rs.resampling(scheme, gen, wgts.W, M=N)
+            A = rs.resampling(scheme, gen, aux.W, M=N)
             Xp = _gather(X, A)
-        lw = torch.zeros_like(lw)
+        if logetat is None:
+            lw = torch.zeros_like(lw)
+        else:
+            lw = (rs.log_mean_exp(logetat, lw=wgts.lw)
+                  - fk.logeta(t - 1, Xp))
     else:
         Xp = X
         A = torch.arange(N, device=lw.device) if need_gen else None
@@ -206,7 +222,7 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
         loglt = new_wgts.log_mean - carry.log_mean_w
     logLt = carry.logLt + loglt
     view = StepView(fk=fk, t=t, X=X_new, Xp=Xp, A=A, wgts=new_wgts,
-                    aux=wgts, rs_flag=rs_flag, logLt=logLt, loglt=loglt,
+                    aux=aux, rs_flag=rs_flag, logLt=logLt, loglt=loglt,
                     N=N, ESSrmin=ESSrmin, gen=gen)
     states, outs = ((), ()) if summaries is None else summaries.step(
         view, carry.col_states)
@@ -255,10 +271,6 @@ class SMC:
             raise NotImplementedError(
                 "SMC samplers are not ported to particles_tpu_torch yet "
                 "(ROADMAP A.9)")
-        if fk.isAPF:
-            raise NotImplementedError(
-                "auxiliary particle filters are not ported to "
-                "particles_tpu_torch yet (ROADMAP A.5)")
         if device is None:
             data = getattr(fk, "data", None)
             if isinstance(data, torch.Tensor):

@@ -3,9 +3,11 @@
 
 The low-level steps (``predict_step``, ``filter_step``,
 ``filter_step_asarray``, ``smoother_step``), the models ``MVLinearGauss``,
-``MVLinearGauss_Guarniero_etal`` and ``LinearGauss``, and the
-:class:`Kalman` filter and smoother, whose recursions are Python
-loops here.  Kalman is the exact oracle for the particle filters' output.
+``MVLinearGauss_Guarniero_etal`` and ``LinearGauss`` with their optimal
+proposals and auxiliary functions (``proposal0``, ``proposal``,
+``logeta``), and the :class:`Kalman` filter and smoother, whose
+recursions are Python loops here.  Kalman is the exact oracle for the
+particle filters' output, the guided and auxiliary ones included.
 
 :class:`Kalman` computes in the floating dtype of its data (float32 for
 other input), on the data's device, and casts the model's matrices to it:
@@ -128,6 +130,24 @@ class MVLinearGauss(ssms.StateSpaceModel):
     def PY(self, t, xp, x):
         return dists.MvNormal(loc=x @ self.G.T, cov=self.covY)
 
+    def proposal(self, t, xp, data):
+        """The locally optimal proposal, by one filter step for the N
+        particles at once."""
+        pred = MeanAndCov(mean=xp @ self.F.T, cov=self.covX)
+        f, _ = filter_step_asarray(self.G, self.covY, pred, data[t])
+        return dists.MvNormal(loc=f.mean, cov=f.cov)
+
+    def proposal0(self, data):
+        f, _ = filter_step(self.G, self.covY,
+                           MeanAndCov(mean=self.mu0, cov=self.cov0), data[0])
+        return dists.MvNormal(loc=f.mean, cov=f.cov)
+
+    def logeta(self, t, x, data):
+        """The optimal auxiliary function, log p(y_{t+1} | x_t)."""
+        pred = MeanAndCov(mean=x @ self.F.T, cov=self.covX)
+        _, logpyt = filter_step_asarray(self.G, self.covY, pred, data[t + 1])
+        return logpyt
+
 
 class MVLinearGauss_Guarniero_etal(MVLinearGauss):
     r"""The Guarniero et al. (2016) benchmark: F[i,j] = alpha^(1+|i-j|),
@@ -196,6 +216,26 @@ class LinearGauss(ssms.StateSpaceModel):
 
     def PY(self, t, xp, x):
         return dists.Normal(loc=x, scale=self.sigmaY)
+
+    def proposal0(self, data):
+        """The law of X_0 given y_0 (the optimal proposal)."""
+        sig2post = 1.0 / (1.0 / self.sigma0 ** 2 + 1.0 / self.sigmaY ** 2)
+        mupost = sig2post * (data[0] / self.sigmaY ** 2)
+        return dists.Normal(loc=mupost, scale=sig2post ** 0.5)
+
+    def proposal(self, t, xp, data):
+        """The law of X_t given X_{t-1} = xp and y_t (the optimal
+        proposal)."""
+        sig2post = 1.0 / (1.0 / self.sigmaX ** 2 + 1.0 / self.sigmaY ** 2)
+        mupost = sig2post * (self.rho * xp / self.sigmaX ** 2
+                             + data[t] / self.sigmaY ** 2)
+        return dists.Normal(loc=mupost, scale=sig2post ** 0.5)
+
+    def logeta(self, t, x, data):
+        """The optimal auxiliary function, log p(y_{t+1} | x_t)."""
+        law = dists.Normal(loc=self.rho * x,
+                           scale=(self.sigmaX ** 2 + self.sigmaY ** 2) ** 0.5)
+        return law.logpdf(data[t + 1])
 
     def upper_bound_log_pt(self, t):
         """log sup_x p(x_t | x_{t-1})."""

@@ -2,12 +2,14 @@
 
 Counterpart of ``particles_tpu/resampling.py``: the numerics
 (``exp_and_normalise``, ``essl``, ``log_sum_exp``, ``log_sum_exp_ab``,
-``log_mean_exp``, ``wmean_and_var``), the :class:`Weights` container, and
-every resampling scheme of the JAX package — ``multinomial``,
-``residual``, ``stratified``, ``systematic``, ``ssp``, ``killing``,
-``idiotic`` — in three registries selected by name: ancestors
-(``rs_funcs``), offspring counts (``rs_counts_funcs``) and z-forms
-(``rs_z_funcs``), plus ``multinomial_iid`` and ``MultinomialQueue``.
+``log_mean_exp``), the weighted moments and quantiles (``wmean_and_var``,
+``wmean_and_cov``, ``wquantiles`` and their dict forms), the
+:class:`Weights` container, and every resampling scheme of the JAX
+package — ``multinomial``, ``residual``, ``stratified``, ``systematic``,
+``ssp``, ``killing``, ``idiotic`` — in three registries selected by name:
+ancestors (``rs_funcs``), offspring counts (``rs_counts_funcs``) and
+z-forms (``rs_z_funcs``), plus ``multinomial_iid`` and
+``MultinomialQueue``.
 
 Randomness is an explicit ``torch.Generator`` where the JAX package takes
 a key: ``resampling(scheme, gen, W, M)``.  Ancestor indices are int64
@@ -45,6 +47,10 @@ __all__ = [
     "log_sum_exp_ab",
     "log_mean_exp",
     "wmean_and_var",
+    "wmean_and_cov",
+    "wmean_and_var_str_array",
+    "wquantiles",
+    "wquantiles_str_array",
     "resampling",
     "resampling_scheme",
     "resampling_counts",
@@ -126,6 +132,45 @@ def wmean_and_var(W, x):
     m = (Wc * x).sum(0)
     m2 = (Wc * x * x).sum(0)
     return {"mean": m, "var": m2 - m * m}
+
+
+def wmean_and_cov(W, x):
+    """Weighted mean and covariance of (N, d) particles: ``(m, cov)``."""
+    m = (W[:, None] * x).sum(0)
+    xc = x - m
+    return m, torch.einsum("n,ni,nj->ij", W, xc, xc)
+
+
+def wmean_and_var_str_array(W, x):
+    """Weighted mean and variance of each field of dict particles:
+    ``{'mean': {field: m}, 'var': {field: v}}``."""
+    moments = {k: wmean_and_var(W, v) for k, v in x.items()}
+    return {"mean": {k: mv["mean"] for k, mv in moments.items()},
+            "var": {k: mv["var"] for k, mv in moments.items()}}
+
+
+def _wquantiles_1d(W, x, alphas):
+    order = torch.argsort(x)
+    cs = torch.cumsum(W[order], 0)
+    cs = cs / cs[-1]
+    a = torch.as_tensor(alphas, dtype=cs.dtype, device=cs.device)
+    idx = torch.searchsorted(cs, a).clamp_(max=x.shape[0] - 1)
+    return x[order[idx]]
+
+
+def wquantiles(W, x, alphas=(0.25, 0.50, 0.75)):
+    """Weighted quantiles of (N,) particles, or of each column of (N, d)
+    particles ((len(alphas), d)): the smallest x whose weighted CDF
+    reaches alpha."""
+    if x.ndim == 1:
+        return _wquantiles_1d(W, x, alphas)
+    return torch.stack([_wquantiles_1d(W, x[:, j], alphas)
+                        for j in range(x.shape[1])], 1)
+
+
+def wquantiles_str_array(W, x, alphas=(0.25, 0.50, 0.75)):
+    """Weighted quantiles of each field of dict particles."""
+    return {k: wquantiles(W, v, alphas) for k, v in x.items()}
 
 
 # ---------------------------------------------------------------------------

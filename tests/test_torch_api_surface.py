@@ -20,8 +20,15 @@ PORTED = {
         "Online_smooth_ON2", "Paris",
     ],
     "particles_tpu.distributions": [
-        "ProbDist", "LocScaleDist", "Normal", "MvNormal",
+        "ProbDist", "LocScaleDist", "Normal", "MvNormal", "Logistic",
+        "Laplace", "Beta", "Gamma", "InvGamma", "LogNormal", "Uniform",
+        "Student", "FlatNormal", "Dirac", "TruncNormal", "DiscreteDist",
+        "Poisson", "Binomial", "Geometric", "NegativeBinomial",
+        "Categorical", "DiscreteUniform", "TransformedDist", "LinearD",
+        "LogD", "LogitD", "Mixture", "MixMissing", "Dirichlet",
+        "VaryingCovNormal", "IndepProd", "IID", "Cond", "StructDist",
     ],
+    "particles_tpu.hmm": ["HMM", "GaussianHMM", "BaumWelch"],
     "particles_tpu.kalman": [
         "MeanAndCov", "predict_step", "filter_step", "smoother_step",
         "MVLinearGauss", "MVLinearGauss_Guarniero_etal", "LinearGauss",
@@ -31,20 +38,26 @@ PORTED = {
         "Weights", "exp_and_normalise", "essl", "log_sum_exp",
         "wmean_and_var", "resampling", "multinomial", "residual",
         "stratified", "systematic", "ssp", "killing", "idiotic",
-        "inverse_cdf", "uniform_spacings", "MultinomialQueue",
+        "inverse_cdf", "uniform_spacings", "MultinomialQueue", "wquantiles",
     ],
     "particles_tpu.smoothing": [
         "ParticleHistory", "PartialParticleHistory",
         "RollingParticleHistory", "generate_hist_obj", "smoothing_worker",
     ],
-    "particles_tpu.state_space_models": ["StateSpaceModel", "Bootstrap"],
-    "particles_tpu.utils": ["timer"],
+    "particles_tpu.state_space_models": [
+        "StateSpaceModel", "Bootstrap", "GuidedPF", "APFMixin",
+        "AuxiliaryPF", "AuxiliaryBootstrap", "StochVol", "StochVolLeverage",
+        "Gordon_etal", "BearingsOnly", "DiscreteCox", "MVStochVol",
+        "ThetaLogistic",
+    ],
+    "particles_tpu.utils": ["timer", "multiplexer", "add_to_dict",
+                            "cartesian_lists", "distribute_work", "worker",
+                            "seeder"],
     "particles_tpu.variance_estimators": ["Var", "Var_logLt",
                                           "Lag_based_var"],
 }
 
-# by ROADMAP item: A.5 the model zoo, A.8 SQMC, A.9 samplers, A.10 the
-# outer loops, A.12 the engine and numerics remainder
+# by ROADMAP item: A.8 SQMC, A.9 samplers, A.10 the outer loops
 MISSING = {
     "particles_tpu": ["SQMC"],
     "particles_tpu.binary_smc": [
@@ -56,17 +69,7 @@ MISSING = {
         "GBP_vs_USD_9798", "Nutria", "Neuro", "Pima", "Eeg", "Sonar",
         "Boston", "Concrete", "Liver",
     ],
-    "particles_tpu.distributions": [
-        "Logistic", "Laplace", "Beta", "Gamma", "InvGamma", "LogNormal",
-        "Uniform", "Student", "FlatNormal", "Dirac", "TruncNormal",
-        "DiscreteDist", "Poisson", "Binomial", "Geometric",
-        "NegativeBinomial", "Categorical", "DiscreteUniform",
-        "TransformedDist", "LinearD", "LogD", "LogitD", "Mixture",
-        "MixMissing", "Dirichlet", "VaryingCovNormal", "IndepProd", "IID",
-        "Cond", "StructDist",
-    ],
     "particles_tpu.hilbert": ["hilbert_sort", "Hilbert_to_int", "invlogit"],
-    "particles_tpu.hmm": ["HMM", "GaussianHMM", "BaumWelch"],
     "particles_tpu.mcmc": [
         "MCMC", "VanishCovTracker", "GenericRWHM", "BasicRWHM", "PMMH",
         "CSMC", "GenericGibbs", "ParticleGibbs",
@@ -75,17 +78,9 @@ MISSING = {
         "NestedParticles", "NestedSampling", "Nested_RWmoves",
         "NestedSamplingSMC", "MeanCovTracker", "unif_minus_one",
     ],
-    "particles_tpu.resampling": ["wquantiles"],
     "particles_tpu.rqmc": ["sobol", "halton", "latin", "safe_generate"],
     "particles_tpu.smc_samplers": list(
         REFERENCE_SURFACE["particles_tpu.smc_samplers"]),
-    "particles_tpu.state_space_models": [
-        "GuidedPF", "APFMixin", "AuxiliaryPF", "AuxiliaryBootstrap",
-        "StochVol", "StochVolLeverage", "Gordon_etal", "BearingsOnly",
-        "DiscreteCox", "MVStochVol", "ThetaLogistic",
-    ],
-    "particles_tpu.utils": ["multiplexer", "add_to_dict", "cartesian_lists",
-                            "distribute_work", "worker", "seeder"],
     "particles_tpu.variance_mcmc": [
         "MCMC_variance", "AutoCovarianceCalculator",
         "autocovariance_fft_single", "default_collector",

@@ -670,3 +670,88 @@ def test_smoothers_draw_through_the_kernels(dev):
     W = pf.hist.wgts.W
     A1, (v,) = rs.multinomial_iid_values(gen, W, [pf.hist.X[-1]], N)
     assert torch.equal(v, pf.hist.X[-1][A1])
+
+
+@pytest.mark.parametrize("fk_cls", ["AuxiliaryBootstrap", "GuidedPF",
+                                    "AuxiliaryPF"])
+def test_guided_and_auxiliary_steps_sync_only_on_the_decision(dev, fk_cls):
+    """A guided or auxiliary step syncs only on the resampling decision,
+    as the bootstrap step does: the auxiliary weights, the resampling on
+    them and the reset from logeta on the served particles read no device
+    value on the host, by the z-form (B1 + B2) and by a gather
+    (``killing``)."""
+    class Always(getattr(ssms, fk_cls)):
+        def time_to_resample(self, smc):
+            return True
+
+    y = torch.randn(5, device=dev)
+    fk = Always(ssm=kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2),
+                data=y)
+    for scheme in ("systematic", "killing"):
+        b1 = ops.systematic_z_fused.launches
+        pf = SMC(fk=fk, N=2 ** 15, resampling=scheme, seed=0)
+        next(pf)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in pf:
+                pass
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert pf.t == 5 and pf.rs_flag is True
+        assert torch.isfinite(pf.logLt)
+        assert (ops.systematic_z_fused.launches - b1
+                == (4 if scheme == "systematic" else 0))
+
+
+def test_b1_on_the_auxiliary_weights_matches_plain(dev):
+    """B1 on the weights an auxiliary filter resamples on (lw + logeta, at
+    three steps of a run) within 1 of its plain version, and B2 equal to
+    its plain version on the particles it moves."""
+    rng = np.random.default_rng(3)
+    T, N = 12, 2 ** 16
+    xs = np.zeros(T)
+    for t in range(1, T):
+        xs[t] = 0.9 * xs[t - 1] + rng.normal()
+    y = torch.from_numpy((xs + 0.2 * rng.normal(size=T))
+                         .astype(np.float32)).to(dev)
+    fk = ssms.AuxiliaryBootstrap(
+        ssm=kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2), data=y)
+    pf = SMC(fk=fk, N=N, seed=4)
+    checked = 0
+    while pf.t < T:
+        X = pf.X
+        next(pf)
+        if pf.t - 1 in (1, T // 2, T - 1):
+            W = pf.aux.W
+            u = torch.tensor(0.37, device=dev)
+            z = ops.systematic_z_fused(W, u, N)
+            zp = ops.systematic_z_plain(W, u, N)
+            assert int((z.long() - zp.long()).abs().max()) <= 1
+            assert bool((z[1:] >= z[:-1]).all()) and int(z[-1]) == N
+            (Xs,), A = ops.repeat_cols(z, N, [X], want_anc=True)
+            (Xq,), Aq = ops.repeat_cols_plain(z, N, [X], want_anc=True)
+            assert torch.equal(Xs, Xq) and torch.equal(A, Aq)
+            checked += 1
+    assert checked == 3
+
+
+def test_betainc_quantiles_read_no_device_value(dev):
+    """``betainc`` runs a fixed number of terms, so the quantiles that
+    bisect it (``Beta``, ``Student``, ``Binomial``) make no host sync, and
+    agree with the same functions on the CPU (rtol 1e-5, atol 1e-6)."""
+    from particles_tpu_torch import distributions as dists
+    u = torch.linspace(0.01, 0.99, 257)
+    laws = (dists.Beta(a=2.5, b=300.0), dists.Student(df=6.5, loc=0.2),
+            dists.Binomial(n=12, p=0.3))
+    on_cpu = [law.ppf(u) for law in laws]
+    u_dev = u.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        on_dev = [law.ppf(u_dev) for law in laws]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for got, want in zip(on_dev, on_cpu):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)

@@ -260,12 +260,20 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         core.SMC(fk=tfk, N=64, resampling="nonsense")
 
+    # auxiliary filters (A.5) are ported now: with logeta = 0 the
+    # auxiliary weights are the weights and the reset is to zero, so the
+    # run is the bootstrap filter's, draw for draw
     class APF(type(tfk)):
         def logeta(self, t, x):
             return torch.zeros(x.shape[0])
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        core.SMC(fk=APF(ssm=tfk.ssm, data=tfk.data), N=64)
+    apf = core.SMC(fk=APF(ssm=tfk.ssm, data=tfk.data), N=64, seed=3)
+    boot = core.SMC(fk=tfk, N=64, seed=3)
+    apf.run()
+    boot.run()
+    assert apf.fk.isAPF and torch.equal(apf.X, boot.X)
+    np.testing.assert_allclose(float(apf.logLt), float(boot.logLt),
+                               rtol=1e-6)
 
     # history (A.3) and stateful collectors (A.6) are ported now: they run
     class Stateful(collectors.Collector):

@@ -150,7 +150,7 @@ def test_guarniero_model_and_unported_models():
     j = jk.MVLinearGauss_Guarniero_etal(alpha=0.4, dx=3)
     _close(t.F, j.F)
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        convert.ssm_from_params("StochVol", {})
+        convert.ssm_from_params("NoSuchModel", {}, device="cpu")
 
 
 def test_simulate_and_params():
