@@ -149,12 +149,34 @@ not 0 and no result line is printed.  It exits with an error at once when
     each kernel launched once a resampling step in its scheme's
     combination.  ms a step of a warm run beside phase 4's.
 
+15. SQMC (``SQMC`` through the iterator protocol) on phase 4's model and
+    data (N = 2^20, T = 1000): logLt within 0.5 of Kalman; B3 and B4
+    launched once a step (999 each) and no other kernel; no host sync in
+    the 999 steps (counted as in phase 11); the last particles finite and
+    sorted (the 1-d Hilbert order).  B3 (phase 5's tolerance) and B4
+    (exact, with the particles as payload) held to their plain versions
+    on the weights and sorted points of t = 1, T/2 and T - 1.  The sd of
+    logLt over 8 seeds at N = 2^16 below the bootstrap filter's at the
+    same N and T.  ``MVLinearGauss_Guarniero_etal`` with dx = 2 and 3 (the
+    Hilbert keys), N = 2^20, T = 100, within 0.5 of Kalman.
+    ``multiSMC(qmc=True)`` over 4 runs, each within 0.5 of Kalman.  QMC
+    FFBS from an SQMC history (N = 2^14, M = 2^12, T = 100, 8 seeds):
+    each smoothed mean within 5 sd of the float64 Kalman smoother at every
+    t, the sd from the spread over the seeds; B3 and B4 once a pass.  The
+    card's Sobol points (every scramble and the sorted set) and Hilbert
+    keys equal the CPU's bit for bit.  ms a step of a warm run beside
+    phase 4's, ms a QMC FFBS pass; from ``tools/profile_torch_sqmc.py``,
+    run in a fresh process, ``torch.profiler`` windows of 20 calls: device
+    ms a step by CUDA kernel and the CUDA kernels a step, B3 and B4 on the
+    main run's inputs of t = T/2, the Sobol draw and the Hilbert sort.
+
 Then the kernels line (with each kernel's launches on the smoothing path,
-``launches_smoothing``, and on phase 14's runs, ``launches_zoo``) and the
-result line.
+``launches_smoothing``, on phase 14's runs, ``launches_zoo``, and on
+phase 15's, ``launches_sqmc``) and the result line.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -216,6 +238,15 @@ N_ZOO = 2 ** 16
 T_ZOO = 100
 MV_SV = {"mu": [-1.0, -0.5], "covX": [[0.1, 0.02], [0.02, 0.05]],
          "corY": [[1.0, 0.4], [0.4, 1.0]], "F": [[0.9, 0.05], [0.0, 0.85]]}
+# phase 15: SQMC on the main path's model and data, its spread over
+# SPREAD_SEEDS seeds at N_SPREAD against SMC's, the Hilbert-key path at
+# T_MV, and QMC FFBS at N_FFBS, M_FFBS, T_FFBS
+N_SPREAD = 2 ** 16
+SPREAD_SEEDS = 8
+T_MV = 100
+N_FFBS = 2 ** 14
+M_FFBS = 2 ** 12
+T_FFBS = 100
 # the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
 # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1132,6 +1163,253 @@ def phase_zoo(torch, dev, smi, y, kf_logLt, main_ms):
     return all_launches, checks
 
 
+def phase_sqmc(torch, dev, smi, y, kf_logLt, main_ms):
+    """Phase 15: SQMC and QMC FFBS.  Each part reports its seconds on
+    stderr as it ends."""
+    import warnings
+
+    t_start = time.perf_counter()
+
+    def progress(part):
+        print(f"phase 15: {part} done at "
+              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr,
+              flush=True)
+
+    from particles_tpu_torch import hilbert, kalman, ops, rqmc
+    from particles_tpu_torch import resampling as rs
+    from particles_tpu_torch import state_space_models as ssms
+    from particles_tpu_torch.core import SQMC, SMC, multiSMC
+
+    sqmc_kernels = ("normalised_cumsum", "repeat_by_su")
+    all_launches, checks = {}, []
+
+    def held(tag, launches, steps):
+        for name, n in launches.items():
+            want = steps if name in sqmc_kernels else 0
+            _check(n == want, f"phase 15 {tag}: {name} launched {n} times, "
+                              f"{steps} steps")
+        all_launches[f"phase 15 {tag}"] = launches
+
+    ssm = kalman.LinearGauss(rho=RHO, sigmaX=SIGX, sigmaY=SIGY)
+    fk = ssms.Bootstrap(ssm=ssm, data=torch.from_numpy(y).to(dev))
+
+    # the main run through the iterator protocol: the sorted points of the
+    # steps whose kernel inputs are checked afterwards are kept by a
+    # wrapper of the closed-form draw the step calls
+    keep_at = {1, T_MAIN // 2, T_MAIN - 1}
+    kept, draw = {}, rqmc.sobol_sorted0
+
+    def keeping_draw(*args, **kwargs):
+        out = draw(*args, **kwargs)
+        if pf.t in keep_at:
+            kept[pf.t] = out
+        return out
+
+    _zero_counts(ops)
+    pf = SQMC(fk=fk, N=N_MAIN, seed=15)
+    next(pf)
+    torch.cuda.synchronize()
+    inputs = {}
+    rqmc.sobol_sorted0 = keeping_draw
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(T_MAIN - 1):
+                    X = pf.X
+                    next(pf)
+                    if pf.t - 1 in keep_at:
+                        inputs[pf.t - 1] = (pf.aux.lw, X)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        rqmc.sobol_sorted0 = draw
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    for _ in pf:
+        pass
+    launches = _read_counts(ops)
+    progress("the main run")
+    held("SQMC", launches, T_MAIN - 1)
+    logLt = float(pf.logLt)
+    _check(abs(logLt - kf_logLt) < LOGLT_TOL,
+           f"phase 15: |logLt - Kalman| = {abs(logLt - kf_logLt)}")
+    _check(syncs == 0, f"phase 15: {syncs} host syncs in {T_MAIN - 1} "
+                       "SQMC steps")
+    _check(bool(pf.summaries.rs_flags[1:].all())
+           and pf.X.shape == (N_MAIN,) and bool(torch.isfinite(pf.X).all())
+           and bool((pf.X[1:] >= pf.X[:-1]).all()),
+           "phase 15: every step resamples, the last particles finite and "
+           "in Hilbert order")
+    # B3 and B4 on the phase's own inputs: the weights and the sorted
+    # points of t = 1, T/2 and T - 1, the particles as B4's payload
+    for t in sorted(inputs):
+        lw, X = inputs[t]
+        W = rs.exp_and_normalise(lw)
+        _, db3 = check_b3(torch, ops, dev, f"phase 15 t={t} B3",
+                          W.cpu().numpy())
+        su = kept[t][:, 0].contiguous()
+        _check(bool((su[1:] >= su[:-1]).all()), f"phase 15 t={t}: su")
+        check_b4(torch, ops, f"phase 15 t={t} B4", su, rs.pinned_cdf(W), [X])
+        checks.append({"tag": f"phase 15 SQMC t={t}", "N": N_MAIN,
+                       "M": [N_MAIN], "B3": 1, "B4": 1,
+                       "normalised_cumsum_err": db3, "repeat_by_su_err": 0})
+    progress("the kernel checks")
+
+    # a warm run timed
+    warm = SQMC(fk=fk, N=N_MAIN, seed=16)
+    warm.run()
+    ms = 1000.0 * warm.cpu_time / T_MAIN
+    _check(abs(float(warm.logLt) - kf_logLt) < LOGLT_TOL,
+           f"phase 15 warm run: logLt {float(warm.logLt)}")
+    # device ms from profiler windows, in a fresh process (in this one,
+    # after phase 10's windows, the profiler drops kernels): B3 and B4 on
+    # the main run's inputs of t = T/2 (the same seed replays the same
+    # run), the next 20 steps by CUDA kernel, the Sobol draw and the
+    # Hilbert sort alone
+    tool = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "profile_torch_sqmc.py"),
+         "--seed", "15"], capture_output=True, text=True, timeout=600)
+    _check(tool.returncode == 0, f"phase 15: tools/profile_torch_sqmc.py "
+                                 f"failed: {tool.stderr[-2000:]}")
+    prof = json.loads(tool.stdout.strip().splitlines()[-1])
+    device_ms = prof["step_device_ms"]
+
+    progress("the warm run and the profiler windows")
+
+    # the spread of logLt over seeds at N = 2^16, SQMC against SMC
+    spread = {}
+    for name, make in (("SQMC", lambda s: SQMC(fk=fk, N=N_SPREAD, seed=s)),
+                       ("SMC", lambda s: SMC(fk=fk, N=N_SPREAD, seed=s))):
+        runs = []
+        for s in range(SPREAD_SEEDS):
+            p = make(200 + s)
+            p.run()
+            runs.append(float(p.logLt))
+        _check(np.all(np.isfinite(runs)), f"phase 15 spread {name}: {runs}")
+        spread[name] = {"logLt_seeds": runs,
+                        "sd": float(np.std(runs, ddof=1))}
+    _check(spread["SQMC"]["sd"] < spread["SMC"]["sd"],
+           f"phase 15: SQMC's sd {spread['SQMC']['sd']} not below SMC's "
+           f"{spread['SMC']['sd']}")
+
+    progress("the spread over seeds")
+
+    # the Hilbert-key path: MVLinearGauss_Guarniero_etal, dx = 2 and 3
+    mv = {}
+    for dx in (2, 3):
+        cpu_model = kalman.MVLinearGauss_Guarniero_etal(dx=dx, device="cpu")
+        _, y_mv = cpu_model.simulate(torch.Generator().manual_seed(dx), T_MV)
+        exact = float(kalman.Kalman(ssm=cpu_model,
+                                    data=y_mv.double()).logLt)
+        fk_mv = ssms.Bootstrap(
+            ssm=kalman.MVLinearGauss_Guarniero_etal(dx=dx, device=dev),
+            data=y_mv.to(dev))
+        _zero_counts(ops)
+        p = SQMC(fk=fk_mv, N=N_MAIN, seed=30 + dx)
+        p.run()
+        held(f"MVLinearGauss dx={dx}", _read_counts(ops), T_MV - 1)
+        rec = {"logLt": float(p.logLt), "kalman_logLt": exact,
+               "abs_diff": abs(float(p.logLt) - exact),
+               "ms_per_step": 1000.0 * p.cpu_time / T_MV,
+               "nbits": hilbert.sort_nbits(N_MAIN, dx)}
+        _check(rec["abs_diff"] < LOGLT_TOL,
+               f"phase 15 MVLinearGauss dx={dx}: {rec}")
+        mv[f"dx={dx}"] = rec
+
+    progress("the multivariate runs")
+
+    # multiSMC(qmc=True) over 4 runs
+    _zero_counts(ops)
+    out = multiSMC(fk=fk, N=N_MAIN, qmc=True, nruns=4, seed=15)
+    held("multiSMC", _read_counts(ops), 4 * (T_MAIN - 1))
+    multi = [float(e["output"].logLt) for e in out]
+    _check(all(np.isfinite(v) and abs(v - kf_logLt) < LOGLT_TOL
+               for v in multi), f"phase 15 multiSMC: {multi}")
+
+    progress("multiSMC")
+
+    # QMC FFBS from an SQMC history against the Kalman smoother; the sd at
+    # each t from the spread over the seeds
+    y_s = y[:T_FFBS]
+    exact_s = kalman_targets(y_s, 1)["mean"]
+    fk_s = ssms.Bootstrap(ssm=ssm, data=torch.from_numpy(y_s).to(dev))
+    ests, pass_ms, ffbs_launches = [], [], None
+    for s in range(SPREAD_SEEDS):
+        p = SQMC(fk=fk_s, N=N_FFBS, seed=50 + s, store_history=True)
+        p.run()
+        gen = torch.Generator(device=dev).manual_seed(60 + s)
+        _zero_counts(ops)
+        paths, wall = _sync_ms(
+            torch, lambda: p.hist.backward_sampling_qmc(gen, M_FFBS))
+        if ffbs_launches is None:
+            ffbs_launches = _read_counts(ops)
+            held("QMC FFBS pass", ffbs_launches, 1)
+        pass_ms.append(wall)
+        _check(paths.shape == (T_FFBS, M_FFBS)
+               and bool(torch.isfinite(paths).all()),
+               f"phase 15 QMC FFBS seed {s}: paths")
+        ests.append(paths.mean(1).cpu().numpy().astype(np.float64))
+    ests = np.stack(ests)
+    sd_t = ests.std(0, ddof=1)
+    err_sd = np.abs(ests - exact_s) / sd_t
+    _check(np.all(np.isfinite(err_sd)) and err_sd.max() <= SMOOTH_SDS,
+           f"phase 15 QMC FFBS: {err_sd.max():.2f} sd at t = "
+           f"{int(err_sd.max(0).argmax())}")
+
+    progress("QMC FFBS")
+
+    # the card against the CPU: the points of every scramble and of the
+    # sorted set, and the Hilbert keys, for the same words and integers
+    gen = torch.Generator().manual_seed(15)
+    n_equal = 0
+    for scramble in ("lms_shift", "shift", "owen"):
+        words = rqmc.scramble_words(gen, 2, scramble)
+        on_dev = {k: v.to(dev) for k, v in words.items()}
+        pairs = [(rqmc.sobol_from_words(on_dev, N_MAIN, 2, scramble),
+                  rqmc.sobol_from_words(words, N_MAIN, 2, scramble))]
+        if scramble == "lms_shift":
+            pairs.append((rqmc.sobol_sorted0_from_words(on_dev, N_MAIN, 2),
+                          rqmc.sobol_sorted0_from_words(words, N_MAIN, 2)))
+        for got, want in pairs:
+            _check(torch.equal(got.cpu(), want),
+                   f"phase 15: {scramble} points on the card differ from "
+                   "the CPU's")
+            n_equal += 1
+    for dx in (2, 3):
+        nbits = hilbert.sort_nbits(N_MAIN, dx)
+        c = torch.randint(0, 2 ** nbits, (N_MAIN, dx), generator=gen)
+        _check(torch.equal(hilbert.hilbert_index(c.to(dev), nbits).cpu(),
+                           hilbert.hilbert_index(c, nbits)),
+               f"phase 15: Hilbert keys dx={dx} differ from the CPU's")
+        n_equal += 1
+
+    _emit({"phase": 15, "nvidia_smi": smi, "N": N_MAIN, "T": T_MAIN,
+           "logLt": logLt, "kalman_logLt": kf_logLt,
+           "abs_diff": abs(logLt - kf_logLt), "tolerance": LOGLT_TOL,
+           "launches": launches, "host_syncs": syncs,
+           "logLt_warm_run": float(warm.logLt), "ms_per_step": ms,
+           "main_path_ms_per_step": main_ms,
+           "ratio_to_main_path": ms / main_ms,
+           "profile": {**prof, "busy_share": (None if device_ms is None
+                                               else device_ms / ms)},
+           "spread": {"N": N_SPREAD, "seeds": SPREAD_SEEDS, **spread},
+           "multivariate": {"T": T_MV, **mv},
+           "multiSMC": {"runs": multi,
+                        "abs_diff": [abs(v - kf_logLt) for v in multi]},
+           "qmc_ffbs": {"N": N_FFBS, "M": M_FFBS, "T": T_FFBS,
+                        "seeds": SPREAD_SEEDS, "max_err_sd": float(
+                            err_sd.max()), "tolerance_sd": SMOOTH_SDS,
+                        "max_abs_err": float(np.abs(ests - exact_s).max()),
+                        "ms_per_pass": pass_ms,
+                        "launches_per_pass": ffbs_launches},
+           "card_equals_cpu_bit_for_bit": n_equal,
+           "kernels_vs_plain": _path_checks_summary(checks)})
+    return all_launches, checks
+
+
 def main():
     import torch
 
@@ -1722,8 +2000,11 @@ def main():
     zoo_launches, zoo_checks = phase_zoo(torch, dev, smi, y, kf_logLt,
                                          1000.0 * wall / T_MAIN)
     checks += zoo_checks
-    # the largest error against the plain version includes the smoothing
-    # and zoo phases' checks on their own inputs
+    sqmc_launches, sqmc_checks = phase_sqmc(torch, dev, smi, y, kf_logLt,
+                                            1000.0 * wall / T_MAIN)
+    checks += sqmc_checks
+    # the largest error against the plain version includes the smoothing,
+    # zoo and SQMC phases' checks on their own inputs
     path_err = {"systematic_z": "systematic_z_err",
                 "repeat_by_z": "repeat_by_z_err",
                 "normalised_cumsum": "normalised_cumsum_err",
@@ -1733,6 +2014,8 @@ def main():
                                    for run, n in smooth_launches.items()}
         k["launches_zoo"] = {run: n[k["name"]]
                              for run, n in zoo_launches.items()}
+        k["launches_sqmc"] = {run: n[k["name"]]
+                              for run, n in sqmc_launches.items()}
         if k["name"] in path_err:
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 c.get(path_err[k["name"]], 0) for c in checks])

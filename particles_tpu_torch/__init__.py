@@ -5,11 +5,13 @@ kernels, with the same module names and public surface, slice by slice
 (ROADMAP.md).  This package imports ``torch`` and never ``jax``.
 
 Ported so far: the particle filters — bootstrap, guided and auxiliary —
-with every resampling scheme (``SMC``, ``multiSMC``, ``FeynmanKac``), the
-model DSL and zoo of ``state_space_models``, every law of
-``distributions``, ``kalman`` and ``hmm`` (the exact oracles), the weight
-numerics and resampling registries, the particle history and off-line
-smoothers (``smoothing``), the collectors with the on-line smoothers,
+with every resampling scheme (``SMC``, ``multiSMC``, ``FeynmanKac``),
+SQMC (``SQMC``, ``SMC(qmc=True)``) with its point sets (``rqmc``) and
+the Hilbert sort (``hilbert``), the model DSL and zoo of
+``state_space_models``, every law of ``distributions``, ``kalman`` and
+``hmm`` (the exact oracles), the weight numerics and resampling
+registries, the particle history and off-line smoothers (``smoothing``,
+QMC FFBS included), the collectors with the on-line smoothers,
 ``variance_estimators``, the experiment helpers of ``utils``, and the six
 kernels of ``ops``.  Entry points run on the current CUDA card unless
 given ``device="cpu"`` or CPU tensors.
@@ -17,17 +19,19 @@ given ``device="cpu"`` or CPU tensors.
 
 __version__ = "0.1.0"
 
-_CORE_EXPORTS = ("SMC", "FeynmanKac", "multiSMC")
+_CORE_EXPORTS = ("SMC", "SQMC", "FeynmanKac", "multiSMC")
 
 _SUBMODULES = (
     "collectors",
     "convert",
     "core",
     "distributions",
+    "hilbert",
     "hmm",
     "kalman",
     "ops",
     "resampling",
+    "rqmc",
     "smoothing",
     "state_space_models",
     "utils",

@@ -16,10 +16,10 @@ Ported: every resampling scheme, adaptive (ESS) or custom
 ``time_to_resample``, the guided and auxiliary particle filters (an
 auxiliary filter resamples on the auxiliary weights, lw + logeta, and
 resets the weights from ``logeta`` recomputed on the served particles),
-stateless and stateful collectors, the particle history
-(``store_history``), ``multiSMC`` (one run after another).  Not yet: SQMC
-and samplers (ROADMAP queue A); asking for one raises
-``NotImplementedError``.
+SQMC (``qmc=True``, :func:`SQMC`; :func:`_step_qmc`), stateless and
+stateful collectors, the particle history (``store_history``),
+``multiSMC`` (one run after another).  Not yet: the samplers (ROADMAP
+queue A); asking for one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,12 +29,14 @@ from typing import Any, NamedTuple
 import torch
 
 from particles_tpu_torch import collectors
+from particles_tpu_torch import hilbert
 from particles_tpu_torch import ops
 from particles_tpu_torch import resampling as rs
+from particles_tpu_torch import rqmc
 from particles_tpu_torch import smoothing
 from particles_tpu_torch import utils
 
-__all__ = ["FeynmanKac", "SMC", "SMCResult", "StepView", "multiSMC"]
+__all__ = ["FeynmanKac", "SMC", "SQMC", "SMCResult", "StepView", "multiSMC"]
 
 
 class FeynmanKac:
@@ -86,6 +88,8 @@ class FeynmanKac:
         return smc.aux.ESS < smc.N * smc.ESSrmin
 
     def default_moments(self, W, X):
+        if isinstance(X, dict):
+            return rs.wmean_and_var_str_array(W, X)
         return rs.wmean_and_var(W, X)
 
     def summary_format(self, smc):
@@ -155,10 +159,28 @@ def _gather(X, A):
     return X.index_select(0, A)
 
 
-def _step0(fk, gen, N, ESSrmin, summaries, need_gen):
-    """Step t=0."""
-    X = fk.M0(gen, N)
+def _qmc_reorder(X, extras):
+    """Particles ``X`` ((N,) or (N, d)) and the (N, ...) tensors ``extras``
+    in the Hilbert order of X, by one stable sort of its key."""
+    X_s, *rest = hilbert.hilbert_sort_with(X, (X,) + tuple(extras))
+    return X_s, tuple(rest)
+
+
+def _step0(fk, gen, N, ESSrmin, summaries, need_gen, qmc=False):
+    """Step t=0.  Under ``qmc`` the particles are ``Gamma0`` of scrambled
+    Sobol points, and the carry holds them in Hilbert order."""
+    if qmc:
+        du = max(fk.du, 1)
+        u = rqmc.sobol(gen, N, du)
+        X = fk.Gamma0(u if du > 1 else u[:, 0])
+        # every later step draws du + 1 columns: their direction numbers
+        # go to the device now, since a copy from the host synchronises
+        rqmc.load_directions(du + 1, u.device)
+    else:
+        X = fk.M0(gen, N)
     lw = fk.logG(0, None, X)
+    if qmc:
+        X, (lw,) = _qmc_reorder(X, (lw,))
     wgts = rs.Weights(lw)
     logLt = wgts.log_mean
     A = torch.arange(N, device=lw.device) if need_gen else None
@@ -231,6 +253,62 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     return carry, view, outs
 
 
+def _step_qmc(fk, gen, carry, t, N, ESSrmin, summaries, need_gen,
+              points=None):
+    """One SQMC step for t >= 1: it always resamples, with one scrambled
+    Sobol set of du + 1 columns sorted by the first (``points``, (N, du +
+    1), when given; else drawn from ``gen``, in closed form at N = 2^m <=
+    2^24).  The carry holds the particles in Hilbert order, so the sorted
+    first column serves them by the inverse CDF of the (auxiliary) weights
+    (B3 builds the CDF, B4 serves X and the ancestors in one launch), and
+    the other columns go through ``fk.Gamma``.  One stable sort by the new
+    particles' Hilbert key carries lw, the ancestors and Xp: the ancestors
+    index the previous Hilbert-ordered generation, so the genealogy stays
+    exact.  No device value is read on the host."""
+    X, lw = carry.X, carry.lw
+    wgts = rs.Weights(lw)
+    if fk.isAPF:
+        logetat = fk.logeta(t - 1, X)
+        aux = wgts.add(logetat)
+    else:
+        logetat, aux = None, wgts
+    du = max(fk.du, 1)
+    if points is None:
+        if N & (N - 1) == 0 and N <= 1 << 24:
+            points = rqmc.sobol_sorted0(gen, N, du + 1)
+        else:
+            u = rqmc.sobol(gen, N, du + 1)
+            points = u.index_select(
+                0, torch.sort(u[:, 0], stable=True).indices)
+    su = points[:, 0].contiguous()
+    (Xp,), A = ops.repeat_cols_su(su, rs.pinned_cdf(aux.W), N,
+                                  [X.contiguous()], want_anc=need_gen)
+    if logetat is None:
+        lw_reset = torch.zeros_like(lw)
+    else:
+        lw_reset = (rs.log_mean_exp(logetat, lw=wgts.lw)
+                    - fk.logeta(t - 1, Xp))
+    v = points[:, 1] if du == 1 else points[:, 1:]
+    X_new = fk.Gamma(t, Xp, v)
+    lw_new = lw_reset + fk.logG(t, Xp, X_new)
+    if need_gen:
+        X_h, (lw_h, A_s, Xp_h) = _qmc_reorder(X_new, (lw_new, A, Xp))
+    else:
+        X_h, (lw_h,) = _qmc_reorder(X_new, (lw_new,))
+        A_s = Xp_h = None
+    h_wgts = rs.Weights(lw_h)
+    loglt = h_wgts.log_mean
+    logLt = carry.logLt + loglt
+    view = StepView(fk=fk, t=t, X=X_h, Xp=Xp_h, A=A_s, wgts=h_wgts, aux=aux,
+                    rs_flag=True, logLt=logLt, loglt=loglt, N=N,
+                    ESSrmin=ESSrmin, gen=gen)
+    states, outs = ((), ()) if summaries is None else summaries.step(
+        view, carry.col_states)
+    carry = _Carry(X=X_h, lw=lw_h, logLt=logLt, log_mean_w=h_wgts.log_mean,
+                   col_states=states)
+    return carry, view, outs
+
+
 class SMC:
     """A particle filter or SMC algorithm::
 
@@ -255,16 +333,17 @@ class SMC:
     frames (:class:`smoothing.RollingParticleHistory`); or a callable
     ``t -> bool``, the frames at those times
     (:class:`smoothing.PartialParticleHistory`).  Frames stay on the device
-    and add no host sync.  ``qmc`` exists in the JAX package and is not
-    ported yet: asking for it raises ``NotImplementedError`` (ROADMAP A.8).
+    and add no host sync.
+
+    ``qmc=True`` runs SQMC (:func:`_step_qmc`): every step resamples, by
+    scrambled Sobol points, with no host sync; ``resampling`` and
+    ``ESSrmin`` are not read.  The particles are kept in Hilbert order,
+    and the history says so (``hilbert_ordered``, which QMC FFBS needs).
     """
 
     def __init__(self, fk=None, N=100, seed=0, generator=None, device=None,
                  resampling="systematic", ESSrmin=0.5, collect=None,
                  qmc=False, store_history=False, verbose=False):
-        if qmc:
-            raise NotImplementedError(
-                "SQMC is not ported to particles_tpu_torch yet (ROADMAP A.8)")
         if resampling not in rs.rs_funcs:
             raise ValueError(f"{resampling} is not a valid resampling scheme")
         if getattr(fk, "is_sampler", False):
@@ -287,12 +366,14 @@ class SMC:
         self.gen = generator
         self.fk = fk
         self.N = N
+        self.qmc = qmc
         self.resampling = resampling
         self.ESSrmin = ESSrmin
         self.verbose = verbose
         self.summaries = (None if collect == "off"
                           else collectors.Summaries(collect))
-        self._hist_obj = smoothing.generate_hist_obj(store_history)
+        self._hist_obj = smoothing.generate_hist_obj(store_history,
+                                                     hilbert_ordered=qmc)
         self.hist = None
         self._finalize_history()
 
@@ -340,7 +421,11 @@ class SMC:
         if self.t == 0:
             carry, view, outs = _step0(self.fk, self.gen, self.N,
                                        self.ESSrmin, self.summaries,
-                                       self._need_gen)
+                                       self._need_gen, qmc=self.qmc)
+        elif self.qmc:
+            carry, view, outs = _step_qmc(self.fk, self.gen, self._carry,
+                                          self.t, self.N, self.ESSrmin,
+                                          self.summaries, self._need_gen)
         else:
             carry, view, outs = _step(self.fk, self.gen, self._carry, self.t,
                                       self.N, self.resampling, self.ESSrmin,
@@ -364,6 +449,12 @@ class SMC:
         step."""
         for _ in self:
             pass
+
+
+def SQMC(*args, **kwargs):
+    """Sequential quasi-Monte Carlo: an :class:`SMC` with ``qmc=True``."""
+    kwargs["qmc"] = True
+    return SMC(*args, **kwargs)
 
 
 class SMCResult:

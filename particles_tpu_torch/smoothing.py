@@ -2,9 +2,8 @@
 
 Counterpart of ``particles_tpu/smoothing.py``: the history containers
 (full, partial and rolling), the genealogy (``_compute_trajectories``),
-FFBS in its O(N²), MCMC and rejection forms, two-filter smoothing in its
-O(N²) and O(N) forms, and :func:`smoothing_worker`.  QMC FFBS waits for
-SQMC (ROADMAP A.8) and raises.
+FFBS in its O(N²), MCMC, rejection and QMC forms, two-filter smoothing in
+its O(N²) and O(N) forms, and :func:`smoothing_worker`.
 
 The full history is what the engine stacks after a run: ``X`` (T, N, ...)
 (or a dict of such tensors), ``A`` (T, N) int64 and ``lw`` (T, N).  Each
@@ -34,7 +33,9 @@ from collections import deque
 
 import torch
 
+from particles_tpu_torch import ops
 from particles_tpu_torch import resampling as rs
+from particles_tpu_torch import rqmc
 
 __all__ = [
     "ParticleHistory",
@@ -45,9 +46,6 @@ __all__ = [
 ]
 
 PAIRS_PER_BLOCK = 1 << 24   # (rows x N) elements of an O(N²) block
-
-_QMC_MSG = ("QMC FFBS needs SQMC, which is not ported to particles_tpu_torch "
-            "yet (ROADMAP A.8)")
 
 
 # ---------------------------------------------------------------------------
@@ -164,21 +162,22 @@ def _compute_trajectories(A):
 # history containers
 # ---------------------------------------------------------------------------
 
-def generate_hist_obj(option):
+def generate_hist_obj(option, hilbert_ordered=False):
     """What ``SMC(store_history=option)`` fills as it runs: ``None`` for
     ``False``; for ``True``, the frames that ``finalize`` stacks into a
     :class:`ParticleHistory`; a :class:`PartialParticleHistory` for a
     callable; a :class:`RollingParticleHistory` for an int k >= 0.  Each
     has ``save(smc)``, called after every step, and ``finalize(fk)``, what
-    ``smc.hist`` holds (during the run and after it)."""
+    ``smc.hist`` holds (during the run and after it), and records
+    ``hilbert_ordered``: the frames are in Hilbert order (an SQMC run)."""
     if option is True:
-        return _FullHistory()
+        return _FullHistory(hilbert_ordered)
     if option is False:
         return None
     if callable(option):
-        return PartialParticleHistory(option)
+        return PartialParticleHistory(option, hilbert_ordered)
     if isinstance(option, int) and option >= 0:
-        return RollingParticleHistory(option)
+        return RollingParticleHistory(option, hilbert_ordered)
     raise ValueError("store_history: invalid option")
 
 
@@ -186,8 +185,9 @@ class _FullHistory:
     """The frames ``(X, A, lw)`` of every step, kept on the device and
     stacked once, by ``finalize``, into a :class:`ParticleHistory`."""
 
-    def __init__(self):
+    def __init__(self, hilbert_ordered=False):
         self.frames, self.hist = [], None
+        self.hilbert_ordered = hilbert_ordered
 
     def save(self, smc):
         self.frames.append((smc.X, smc.A, smc.wgts.lw))
@@ -196,7 +196,8 @@ class _FullHistory:
         if self.frames:
             X, A, lw = zip(*self.frames)
             self.hist = ParticleHistory(fk, _stack(X), torch.stack(A),
-                                        torch.stack(lw))
+                                        torch.stack(lw),
+                                        hilbert_ordered=self.hilbert_ordered)
             self.frames = []
         return self.hist
 
@@ -205,8 +206,9 @@ class PartialParticleHistory:
     """History recorded only at the times t where ``func(t)`` is true:
     dicts ``X`` and ``wgts`` keyed by t."""
 
-    def __init__(self, func):
+    def __init__(self, func, hilbert_ordered=False):
         self.is_save_time = func
+        self.hilbert_ordered = hilbert_ordered
         self.X, self.wgts = {}, {}
 
     def save(self, smc):
@@ -223,7 +225,8 @@ class RollingParticleHistory:
     """The k most recent particle systems: deques ``X``, ``A`` and ``wgts``
     of at most k frames, so O(kN) memory."""
 
-    def __init__(self, length):
+    def __init__(self, length, hilbert_ordered=False):
+        self.hilbert_ordered = hilbert_ordered
         self.X = deque([], length)
         self.A = deque([], length)
         self.wgts = deque([], length)
@@ -255,16 +258,19 @@ class ParticleHistory:
 
     ``X`` (T, N, ...) (or a dict of such tensors), ``A`` (T, N) int64 and
     ``lw`` (T, N); ``wgts`` is the last frame's :class:`Weights`,
-    ``wgts_at(t)`` frame t's.  ``backward_sampling_reject`` leaves, in time
-    order for t = 0..T-2, ``acc_rate`` (a tensor), ``rounds`` and
+    ``wgts_at(t)`` frame t's.  ``hilbert_ordered`` says that every frame
+    is in Hilbert order, each ``A`` indexing the previous ordered frame (an
+    SQMC run), which QMC FFBS needs.  ``backward_sampling_reject`` leaves,
+    in time order for t = 0..T-2, ``acc_rate`` (a tensor), ``rounds`` and
     ``stragglers`` (lists of ints) on the object.
     """
 
-    def __init__(self, fk, X, A, lw):
+    def __init__(self, fk, X, A, lw, hilbert_ordered=False):
         self.fk = fk
         self.X = X
         self.A = A
         self.lw = lw
+        self.hilbert_ordered = hilbert_ordered
 
     @property
     def T(self):
@@ -376,7 +382,45 @@ class ParticleHistory:
         return self._output_paths(torch.stack(idx))
 
     def backward_sampling_qmc(self, gen, M):
-        raise NotImplementedError(_QMC_MSG)
+        """QMC FFBS, O(M N) a step, on the history of an SQMC run: the
+        M trajectories follow the rows of one scrambled Sobol set of T
+        columns drawn from ``gen``.  At the last time each draws its index
+        by the inverse CDF of the last weights (B3, then B4) at its last
+        column; at each earlier t, by the inverse CDF of its (N,) backward
+        weights at column t, which pairs the point with the Hilbert order
+        of frame t.  The O(N) rows go by blocks of at most
+        ``PAIRS_PER_BLOCK`` pairs."""
+        if not self.hilbert_ordered:
+            raise ValueError(
+                "QMC FFBS requires particles to have been Hilbert-ordered "
+                "during the forward pass (run SMC with qmc=True)")
+        u = rqmc.sobol(gen, M, self.T)
+        csT, _ = rs._normalised_cumsum_mono(self.wgts.W)
+        idx = [ops.ancestors_by_su(u[:, -1].contiguous(), csT)]
+        for t in range(self.T - 2, -1, -1):
+            idx.append(self._backward_qmc(t, idx[-1], u[:, t]))
+        idx.reverse()
+        return self._output_paths(torch.stack(idx))
+
+    def _backward_qmc(self, t, idx_next, u_t):
+        """Each trajectory's index at t: the first n where the cumulative
+        backward weights of its point at t + 1 reach ``u_t`` (N - 1 when
+        none does), the count of a monotone CDF below u_t as in the JAX
+        package, whose cumsum may dip where this one need not."""
+        X_t, lw_t, N = self._x_at(t), self.lw[t], self.N
+        xn = _take(self._x_at(t + 1), idx_next)
+        src = _map(lambda v: v.unsqueeze(0), X_t)
+        M = idx_next.shape[0]
+        R = _rows_per_block(M, N)
+        out = []
+        for s in range(0, M, R):
+            rows = _map(lambda v: v[s:s + R].unsqueeze(1), xn)
+            lwm = lw_t + self.fk.logpt(t + 1, src, rows)
+            cw = torch.softmax(lwm, 1).cumsum(1)
+            reach = cw >= u_t[s:s + R, None]
+            first = reach.to(torch.uint8).argmax(1)
+            out.append(torch.where(reach.any(1), first, N - 1))
+        return torch.cat(out)
 
     # -- two-filter smoothing -----------------------------------------------
 
@@ -466,8 +510,9 @@ def smoothing_worker(method=None, N=100, fk=None, fk_info=None,
     """Generic worker for off-line smoothing benchmarks.
 
     ``method`` in ['FFBS_purereject', 'FFBS_hybrid', 'FFBS_MCMC',
-    'FFBS_ON2', 'two-filter_ON', 'two-filter_ON_prop', 'two-filter_ON2']
-    ('FFBS_QMC' waits for ROADMAP A.8 and raises).  The filters run on
+    'FFBS_ON2', 'FFBS_QMC', 'two-filter_ON', 'two-filter_ON_prop',
+    'two-filter_ON2'] ('FFBS_QMC' runs the forward pass as SQMC).  The
+    filters run on
     ``fk.data``'s device; their generators and the smoother's are seeded
     from ``seed``.  Returns ``{'est': (T-1,) tensor, 'cpu': seconds}``, the
     time of the forward pass and the smoother, the clock stopped after the
@@ -475,21 +520,22 @@ def smoothing_worker(method=None, N=100, fk=None, fk_info=None,
     """
     from particles_tpu_torch.core import SMC
 
-    if method == "FFBS_QMC":
-        raise NotImplementedError(_QMC_MSG)
     seeds = torch.randint(0, 2 ** 62, (3,),
                           generator=torch.Generator().manual_seed(seed))
     seeds = seeds.tolist()
     T = fk.T
     if fk_info is None:
         fk_info = fk.__class__(ssm=fk.ssm, data=fk.data.flip(0))
-    pf = SMC(fk=fk, N=N, store_history=True, seed=seeds[0])
+    pf = SMC(fk=fk, N=N, qmc=method == "FFBS_QMC", store_history=True,
+             seed=seeds[0])
     gen = torch.Generator(device=pf.device).manual_seed(seeds[1])
     tic = time.perf_counter()
     pf.run()
     if method.startswith("FFBS"):
         sub = method.split("_")[-1]
-        if sub == "ON2":
+        if sub == "QMC":
+            z = pf.hist.backward_sampling_qmc(gen, N)
+        elif sub == "ON2":
             z = pf.hist.backward_sampling_ON2(gen, N)
         elif sub == "MCMC":
             z = pf.hist.backward_sampling_mcmc(gen, N)

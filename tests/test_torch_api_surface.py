@@ -14,7 +14,7 @@ import pytest
 from test_api_surface import REFERENCE_SURFACE
 
 PORTED = {
-    "particles_tpu": ["SMC", "FeynmanKac", "multiSMC"],
+    "particles_tpu": ["SMC", "SQMC", "FeynmanKac", "multiSMC"],
     "particles_tpu.collectors": [
         "Collector", "Moments", "Fixed_lag_smooth", "Online_smooth_naive",
         "Online_smooth_ON2", "Paris",
@@ -28,6 +28,7 @@ PORTED = {
         "LogD", "LogitD", "Mixture", "MixMissing", "Dirichlet",
         "VaryingCovNormal", "IndepProd", "IID", "Cond", "StructDist",
     ],
+    "particles_tpu.hilbert": ["hilbert_sort", "Hilbert_to_int", "invlogit"],
     "particles_tpu.hmm": ["HMM", "GaussianHMM", "BaumWelch"],
     "particles_tpu.kalman": [
         "MeanAndCov", "predict_step", "filter_step", "smoother_step",
@@ -40,6 +41,7 @@ PORTED = {
         "stratified", "systematic", "ssp", "killing", "idiotic",
         "inverse_cdf", "uniform_spacings", "MultinomialQueue", "wquantiles",
     ],
+    "particles_tpu.rqmc": ["sobol", "halton", "latin", "safe_generate"],
     "particles_tpu.smoothing": [
         "ParticleHistory", "PartialParticleHistory",
         "RollingParticleHistory", "generate_hist_obj", "smoothing_worker",
@@ -57,9 +59,8 @@ PORTED = {
                                           "Lag_based_var"],
 }
 
-# by ROADMAP item: A.8 SQMC, A.9 samplers, A.10 the outer loops
+# by ROADMAP item: A.9 samplers, A.10 the outer loops
 MISSING = {
-    "particles_tpu": ["SQMC"],
     "particles_tpu.binary_smc": [
         "Bernoulli", "NestedLogistic", "BinaryMetropolis",
         "chol_and_friends", "VariableSelection", "BayesianVS",
@@ -69,7 +70,6 @@ MISSING = {
         "GBP_vs_USD_9798", "Nutria", "Neuro", "Pima", "Eeg", "Sonar",
         "Boston", "Concrete", "Liver",
     ],
-    "particles_tpu.hilbert": ["hilbert_sort", "Hilbert_to_int", "invlogit"],
     "particles_tpu.mcmc": [
         "MCMC", "VanishCovTracker", "GenericRWHM", "BasicRWHM", "PMMH",
         "CSMC", "GenericGibbs", "ParticleGibbs",
@@ -78,7 +78,6 @@ MISSING = {
         "NestedParticles", "NestedSampling", "Nested_RWmoves",
         "NestedSamplingSMC", "MeanCovTracker", "unif_minus_one",
     ],
-    "particles_tpu.rqmc": ["sobol", "halton", "latin", "safe_generate"],
     "particles_tpu.smc_samplers": list(
         REFERENCE_SURFACE["particles_tpu.smc_samplers"]),
     "particles_tpu.variance_mcmc": [

@@ -219,6 +219,45 @@ def test_moments_is_wmean_and_var():
     _close(custom.numpy(), (tv.W * tv.X * tv.X).sum().numpy())
 
 
+class DictFK(core.FeynmanKac):
+    """Dict particles {"a", "b"} (ROADMAP C.8's input): a random walk with
+    a weight on a, and a positive b."""
+
+    T = 5
+
+    def M0(self, gen, N):
+        return {"a": torch.randn(N, generator=gen),
+                "b": torch.rand(N, generator=gen) + 1.0}
+
+    def M(self, gen, t, xp):
+        return {"a": xp["a"] + torch.randn(xp["a"].shape, generator=gen),
+                "b": 0.9 * xp["b"] + torch.rand(xp["b"].shape,
+                                                generator=gen)}
+
+    def logG(self, t, xp, x):
+        return -0.5 * x["a"] ** 2
+
+
+def test_moments_on_dict_particles_match_jax():
+    """``Moments()`` on dict particles gives each field's weighted mean and
+    variance, as the JAX package's ``default_moments`` does on the same
+    weights and particles at every t."""
+    pf = SMC(fk=DictFK(), N=100, seed=0, device="cpu", store_history=True,
+             collect=[col.Moments()])
+    pf.run()
+    assert len(pf.summaries.moments) == DictFK.T
+    for t, mom in enumerate(pf.summaries.moments):
+        W = rs.exp_and_normalise(pf.hist.lw[t])
+        X = {k: v[t] for k, v in pf.hist.X.items()}
+        ref = jcore.FeynmanKac.default_moments(
+            None, jnp.asarray(W.numpy()),
+            {k: jnp.asarray(v.numpy()) for k, v in X.items()})
+        for stat in ("mean", "var"):
+            assert set(mom[stat]) == {"a", "b"}
+            for k in ("a", "b"):
+                _close(mom[stat][k].numpy(), ref[stat][k])
+
+
 # -- whole runs against the Kalman smoother ----------------------------------
 
 @pytest.fixture(scope="module")

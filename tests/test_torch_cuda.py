@@ -755,3 +755,92 @@ def test_betainc_quantiles_read_no_device_value(dev):
     for got, want in zip(on_dev, on_cpu):
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fk_cls,dx", [("Bootstrap", 1), ("AuxiliaryPF", 1),
+                                       ("Bootstrap", 2)])
+def test_sqmc_steps_sync_never(dev, fk_cls, dx):
+    """An SQMC step reads no device value on the host: whole steps after
+    the first, with and without the history (the ancestors riding B4), run
+    with synchronising operations made errors.  Each step launches B3 once
+    and B4 once, and no other kernel; N = 2^14 takes the closed-form
+    sorted points, N = 3000 the sort."""
+    if dx == 1:
+        ssm = kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
+        y = torch.randn(6, device=dev)
+    else:
+        ssm = kalman.MVLinearGauss_Guarniero_etal(alpha=0.4, dx=dx,
+                                                  device=dev)
+        y = torch.randn(6, dx, device=dev)
+    fk = getattr(ssms, fk_cls)(ssm=ssm, data=y)
+    for N, opts in ((2 ** 14, {}), (2 ** 14, {"store_history": True}),
+                    (3000, {"store_history": 2})):
+        pf = SMC(fk=fk, N=N, qmc=True, seed=0, **opts)
+        next(pf)
+        torch.cuda.synchronize()
+        before = {k: f.launches for k, f in ops.KERNELS.items()}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in pf:
+                pass
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        n = {k: f.launches - before[k] for k, f in ops.KERNELS.items()}
+        want = {k: 5 if k in ("normalised_cumsum", "repeat_by_su") else 0
+                for k in ops.KERNELS}
+        assert n == want, (N, opts, n)
+        assert pf.t == 6 and bool(torch.isfinite(pf.logLt))
+        if opts.get("store_history") is True:
+            assert pf.hist.hilbert_ordered and pf.hist.A.device == dev
+
+
+def test_sobol_and_hilbert_keys_on_the_card_equal_the_cpu(dev):
+    """For the same scramble words, the points of every scramble and of the
+    sorted set, and the Hilbert keys of the same integers, are the CPU's
+    bit for bit."""
+    from particles_tpu_torch import hilbert, rqmc
+    gen = torch.Generator().manual_seed(9)
+    for scramble in ("lms_shift", "shift", "owen"):
+        words = rqmc.scramble_words(gen, 5, scramble)
+        on_dev = {k: v.to(dev) for k, v in words.items()}
+        for start, count in ((0, None), (1000, 333)):
+            want = rqmc.sobol_from_words(words, 4096, 5, scramble, start,
+                                         count)
+            got = rqmc.sobol_from_words(on_dev, 4096, 5, scramble, start,
+                                        count)
+            assert torch.equal(got.cpu(), want), (scramble, start)
+        if scramble == "lms_shift":
+            assert torch.equal(
+                rqmc.sobol_sorted0_from_words(on_dev, 2 ** 16, 5).cpu(),
+                rqmc.sobol_sorted0_from_words(words, 2 ** 16, 5))
+    for d, nbits in ((2, 12), (3, 8), (4, 15)):
+        c = torch.randint(0, 2 ** nbits, (10000, d), generator=gen)
+        assert torch.equal(hilbert.hilbert_index(c.to(dev), nbits).cpu(),
+                           hilbert.hilbert_index(c, nbits))
+
+
+def test_qmc_ffbs_on_the_card(dev):
+    """A QMC FFBS pass on an SQMC history builds the last CDF once (B3) and
+    serves the last column from it once (B4); the paths are finite and
+    their means near the Kalman smoother's."""
+    rng = np.random.default_rng(5)
+    T = 10
+    xs = np.zeros(T)
+    for t in range(1, T):
+        xs[t] = 0.9 * xs[t - 1] + rng.normal()
+    y = (xs + 0.2 * rng.normal(size=T)).astype(np.float32)
+    ssm = kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
+    kf = kalman.Kalman(ssm=ssm, data=torch.from_numpy(y).double())
+    kf.smoother()
+    pf = SMC(fk=ssms.Bootstrap(ssm=ssm, data=torch.from_numpy(y).to(dev)),
+             N=2 ** 12, qmc=True, store_history=True, seed=1)
+    pf.run()
+    b3 = ops.normalised_cumsum_exact.launches
+    b4 = ops.repeat_cols_su.launches
+    paths = pf.hist.backward_sampling_qmc(
+        torch.Generator(device=dev).manual_seed(2), 2 ** 10)
+    assert ops.normalised_cumsum_exact.launches - b3 == 1
+    assert ops.repeat_cols_su.launches - b4 == 1
+    assert paths.device == dev and bool(torch.isfinite(paths).all())
+    np.testing.assert_allclose(paths.mean(1).cpu().numpy(),
+                               kf.smth.mean[:, 0].numpy(), atol=0.15)

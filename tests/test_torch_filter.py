@@ -255,8 +255,17 @@ def test_genealogy_collector_gets_ancestors():
 
 def test_unported_options_raise():
     _, tfk = _models(_simulate(5, 5))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        core.SMC(fk=tfk, N=64, qmc=True)
+
+    # the samplers (A.9) are not ported yet; SQMC (A.8) is, and runs,
+    # resampling at every step
+    class Sampler(type(tfk)):
+        is_sampler = True
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        core.SMC(fk=Sampler(ssm=tfk.ssm, data=tfk.data), N=64)
+    sqmc = core.SMC(fk=tfk, N=64, qmc=True, seed=0)
+    sqmc.run()
+    assert sqmc.qmc and bool(sqmc.summaries.rs_flags[1:].all())
     with pytest.raises(ValueError):
         core.SMC(fk=tfk, N=64, resampling="nonsense")
 

@@ -316,12 +316,16 @@ def test_smoothing_worker(smooth_setup, method):
 
 
 def test_qmc_ffbs_waits_for_sqmc(smooth_setup):
+    """QMC FFBS needs the Hilbert-ordered history of an SQMC run: on a
+    bootstrap filter's history it raises, as the JAX package does, and
+    ``smoothing_worker("FFBS_QMC")`` runs its forward pass as SQMC."""
     fk, *_, pf = smooth_setup
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(ValueError, match="Hilbert"):
         pf.hist.backward_sampling_qmc(torch.Generator(), 10)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        smoothing.smoothing_worker(method="FFBS_QMC", N=10, fk=fk,
-                                   add_func=lambda t, x, xf: x)
+    out = smoothing.smoothing_worker(method="FFBS_QMC", N=64, fk=fk,
+                                     add_func=lambda t, x, xf: x)
+    assert out["est"].shape == (fk.T - 1,)
+    assert bool(torch.isfinite(out["est"]).all())
 
 
 # -- rolling and partial history, multiSMC -----------------------------------
