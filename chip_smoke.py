@@ -170,9 +170,36 @@ not 0 and no result line is printed.  It exits with an error at once when
     ms a step by CUDA kernel and the CUDA kernels a step, B3 and B4 on the
     main run's inputs of t = T/2, the Sobol draw and the Hilbert sort.
 
+16. The SMC samplers (``SMC`` with ``smc_samplers.IBIS``, ``Tempering``
+    and ``AdaptiveTempering``), waste-free at M = 2^14 starting points, P
+    = 64 (N0 = 2^20).  The conjugate Gaussian mean of the JAX package's
+    tests (T = 30, y from numpy seed 0): each logLt within 0.5 of the
+    exact evidence (scipy, y ~ N(0, I + 11^T)) and in units of its
+    spread over 8 seeds at N0 = 2^16; the posterior mean within 5 of
+    those sd of the exact one.  ``AdaptiveTempering(wastefree=False)``
+    with ``AdaptiveMCMCSequence(adaptive=True)`` at N = 2^16.  Pima
+    logistic regression (``AdaptiveTempering``) at the JAX package's
+    shape (N = 100, len_chain = 30) and at M = 2^14, P = 64: logLt within
+    3.0 of the path-sampling estimate and the posterior mean within 0.3
+    of the Newton MAP (the example's checks).  Sonar (d = 61) at M = 2^14,
+    P = 64: logLt and path sampling finite.  Under ``systematic`` B1 once
+    and B2 ceil(leaves / 8) times a resampling step and no other kernel;
+    ``multiSMC`` with ``stratified`` (B3, B2) and ``multinomial`` (B3,
+    B5, B2) at N0 = 2^16 within 0.5 of exact.  Host syncs counted as in
+    phase 11: one a step (the decision; ``done``'s test for
+    AdaptiveTempering, plus the read that ends the run), plus one a chain
+    step but a move's last for the adaptive move.  B1 (phase 2's
+    tolerance) and B2 (exact) on the Pima 2^20 run's own N0 weights and
+    served leaves at its first, a middle and its last resampling step.
+    ms a step of a warm run beside phase 4's (Sonar's counted run), the
+    steps, acceptance rates, bytes served a resampling step; from
+    ``tools/profile_torch_samplers.py``, run in a fresh process, device ms
+    a step by CUDA kernel, CUDA kernels a step and the busy share.
+
 Then the kernels line (with each kernel's launches on the smoothing path,
-``launches_smoothing``, on phase 14's runs, ``launches_zoo``, and on
-phase 15's, ``launches_sqmc``) and the result line.
+``launches_smoothing``, on phase 14's runs, ``launches_zoo``, on phase
+15's, ``launches_sqmc``, and on phase 16's, ``launches_samplers``) and the
+result line.
 """
 
 import json
@@ -247,6 +274,28 @@ T_MV = 100
 N_FFBS = 2 ** 14
 M_FFBS = 2 ** 12
 T_FFBS = 100
+# phase 16: the SMC samplers, waste-free at M = N_SAMPLER starting points
+# and P = P_SAMPLER states a chain (N0 = 2^20): the conjugate Gaussian mean
+# of tests/test_smc_samplers.py (T_CONJ = 30) with IBIS, Tempering at
+# TEMPERING_EXPONENTS and AdaptiveTempering; their spread over
+# SPREAD_SEEDS seeds at N0 = N_SAMPLER_SPREAD, and the posterior mean held
+# within SAMPLER_SDS of those sd; AdaptiveTempering not waste-free with
+# the adaptive move (ADAPTIVE_LEN_CHAIN) at N_SAMPLER_SPREAD; Pima at the
+# JAX package's shape (bench.py: PIMA_N, PIMA_LEN_CHAIN) and at N0 = 2^20,
+# held to examples/tempering_logistic_regression.py's checks (logLt
+# within PIMA_PS_TOL of path sampling, the posterior mean within
+# PIMA_MAP_TOL of the Newton MAP); Sonar (d = 61) at N0 = 2^20
+N_SAMPLER = 2 ** 14
+P_SAMPLER = 64
+T_CONJ = 30
+TEMPERING_EXPONENTS = np.linspace(0.1, 1.0, 10)
+N_SAMPLER_SPREAD = 2 ** 16
+SAMPLER_SDS = 5
+ADAPTIVE_LEN_CHAIN = 12
+PIMA_N = 100
+PIMA_LEN_CHAIN = 30
+PIMA_PS_TOL = 3.0
+PIMA_MAP_TOL = 0.3
 # the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
 # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1410,6 +1459,409 @@ def phase_sqmc(torch, dev, smi, y, kf_logLt, main_ms):
     return all_launches, checks
 
 
+def _sampler_classes():
+    """The phase's static models: the conjugate Gaussian mean of the JAX
+    package's tests and the logistic regression of its Pima example (data
+    rows y_i x_i, theta = b0..b{p-1})."""
+    import torch
+
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import smc_samplers as ssp
+
+    class GaussianMean(ssp.StaticModel):
+        """y_t ~ N(mu, 1), mu ~ N(0, 1)."""
+
+        def logpyt(self, theta, t):
+            return dists.Normal(loc=theta["mu"]).logpdf(self.data[t])
+
+    class LogisticRegression(ssp.StaticModel):
+        def logpyt(self, theta, t):
+            p = self.data.shape[1]
+            beta = torch.stack([theta[f"b{j}"] for j in range(p)], -1)
+            return -torch.nn.functional.softplus(-(beta @ self.data[t]))
+
+    return GaussianMean, LogisticRegression
+
+
+def conjugate_targets():
+    """y (T_CONJ, numpy seed 0, as tests/test_smc_samplers.py), its exact
+    log-evidence (y ~ N(0, I + 11^T)), posterior mean and variance."""
+    import scipy.stats as st
+
+    y = np.random.default_rng(0).normal(loc=1.5, size=T_CONJ).astype(
+        np.float32)
+    exact = float(st.multivariate_normal(
+        np.zeros(T_CONJ), np.eye(T_CONJ) + np.ones((T_CONJ, T_CONJ))
+    ).logpdf(y))
+    post_var = 1.0 / (1.0 + T_CONJ)
+    return y, exact, post_var * float(y.astype(np.float64).sum()), post_var
+
+
+def logistic_model(torch, dev, name):
+    """``LogisticRegression`` on ``datasets.<name>()`` with the example's
+    prior, theta = b0..b{p-1} ~ N(0, 5^2); returns (model, data)."""
+    from particles_tpu_torch import datasets
+    from particles_tpu_torch import distributions as dists
+
+    _, LogisticRegression = _sampler_classes()
+    data = getattr(datasets, name)().data.astype(np.float32)
+    p = data.shape[1]
+    prior = dists.StructDist({f"b{j}": dists.Normal(scale=5.0)
+                              for j in range(p)})
+    return LogisticRegression(data=torch.from_numpy(data).to(dev),
+                              prior=prior), data
+
+
+def newton_map(data):
+    """The Newton MAP of the logistic regression under the N(0, 5^2)
+    prior (examples/tempering_logistic_regression.py)."""
+    D = np.asarray(data, float)
+    p = D.shape[1]
+    b = np.zeros(p)
+    for _ in range(50):
+        s = 1.0 / (1.0 + np.exp(D @ b))
+        grad = D.T @ s - b / 25.0
+        H = -(D.T * (s * (1.0 - s))) @ D - np.eye(p) / 25.0
+        step = np.linalg.solve(H, grad)
+        b = b - step
+        if np.max(np.abs(step)) < 1e-8:
+            break
+    return b
+
+
+def phase_samplers(torch, dev, smi, main_ms):
+    """Phase 16: the SMC samplers.  Each part reports its seconds on
+    stderr as it ends."""
+    import warnings
+
+    from particles_tpu_torch import collectors, ops
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import resampling as rs
+    from particles_tpu_torch import smc_samplers as ssp
+    from particles_tpu_torch.core import SMC, multiSMC
+
+    t_start = time.perf_counter()
+
+    def progress(part):
+        print(f"phase 16: {part} done at "
+              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr,
+              flush=True)
+
+    GaussianMean, _ = _sampler_classes()
+    y, exact, post_mean, post_var = conjugate_targets()
+    conj = GaussianMean(data=torch.from_numpy(y).to(dev),
+                        prior=dists.StructDist({"mu": dists.Normal()}))
+    N0 = N_SAMPLER * P_SAMPLER
+    all_launches, checks = {}, []
+
+    class AccRate(collectors.Collector):
+        """The move's acceptance rate at each step (on the device)."""
+
+        summary_name = "acc_rates"
+        uses_genealogy = False
+
+        def collect(self, view):
+            return view.X.shared["acc_rate"]
+
+    def make(kind):
+        if kind == "IBIS":
+            return ssp.IBIS(model=conj, len_chain=P_SAMPLER)
+        if kind == "Tempering":
+            return ssp.Tempering(model=conj, len_chain=P_SAMPLER,
+                                 exponents=TEMPERING_EXPONENTS)
+        return ssp.AdaptiveTempering(model=conj, len_chain=P_SAMPLER)
+
+    def counted(tag, fk, M, seed, scheme="systematic", reads=None):
+        """One run through the iterator protocol: host syncs counted after
+        step 0 (as in phase 11), launches, and the record."""
+        _zero_counts(ops)
+        pf = SMC(fk=fk, N=M, seed=seed, resampling=scheme,
+                 collect=[AccRate()])
+        t0 = time.perf_counter()
+        next(pf)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in pf:
+                    pass
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+        launches = _read_counts(ops)
+        all_launches[f"phase 16 {tag}"] = launches
+        n_rs = int(pf.summaries.rs_flags.sum())
+        leaves = len(pf.X._leaves()[0])
+        logLt = float(pf.logLt)
+        _check(np.isfinite(logLt), f"phase 16 {tag}: logLt {logLt}")
+        scheme_kernels = SCHEME_KERNELS[scheme]
+        for name, n in launches.items():
+            per = -(-leaves // ops.MAX_PAYLOADS) if name == "repeat_by_z" \
+                else 1
+            want = n_rs * per if name in scheme_kernels else 0
+            _check(n == want and n_rs > 0,
+                   f"phase 16 {tag}: {name} launched {n} times, {n_rs} "
+                   f"resampling steps, {leaves} leaves")
+        # the reads: the decision a step (IBIS, Tempering), or done's
+        # exponent test before each step and once to end (AdaptiveTempering)
+        steps = pf.t - 1
+        if reads is None:
+            always = getattr(fk, "always_resample", False)
+            want_syncs = steps + 1 if always else steps
+        else:
+            want_syncs = reads(steps)
+        _check(syncs == want_syncs, f"phase 16 {tag}: {syncs} host syncs in "
+                                    f"{steps} steps, expected {want_syncs}")
+        row_bytes = sum(a.element_size() * a[0].numel()
+                        for a in pf.X._leaves()[0])
+        rec = {"N": M, "N0": pf.X.N, "T": pf.t, "logLt": logLt,
+               "resampling_steps": n_rs, "leaves": leaves,
+               "launches": launches, "host_syncs": syncs,
+               "acc_rates": [float(a) for a in pf.summaries.acc_rates],
+               "bytes_served_per_resampling_step": {
+                   "written": M * row_bytes, "rows_read": M * row_bytes,
+                   "z_read": 4 * pf.X.N},
+               "counted_run_s": wall}
+        return pf, rec
+
+    def warm(fk, M, seed):
+        """ms a step of a run timed by ``run()``."""
+        pf = SMC(fk=fk, N=M, seed=seed)
+        pf.run()
+        return 1000.0 * pf.cpu_time / pf.t
+
+    def post_stats(pf):
+        mu = pf.X.theta["mu"].double()
+        W = pf.wgts.W.double()
+        m = float((W * mu).sum())
+        return m, float((W * mu * mu).sum()) - m * m
+
+    # the spread of logLt and of the posterior mean over SPREAD_SEEDS
+    # seeds at N_SAMPLER_SPREAD particles (M = N_SAMPLER_SPREAD / P)
+    kinds = ("IBIS", "Tempering", "AdaptiveTempering")
+    spread = {}
+    M_s = N_SAMPLER_SPREAD // P_SAMPLER
+    for kind in kinds:
+        lls, means = [], []
+        for s in range(SPREAD_SEEDS):
+            pf = SMC(fk=make(kind), N=M_s, seed=300 + s)
+            pf.run()
+            lls.append(float(pf.logLt))
+            means.append(post_stats(pf)[0])
+        _check(np.all(np.isfinite(lls)), f"phase 16 spread {kind}: {lls}")
+        spread[kind] = {"logLt_seeds": lls, "mean_seeds": means,
+                        "logLt_sd": float(np.std(lls, ddof=1)),
+                        "mean_sd": float(np.std(means, ddof=1))}
+    progress("the spread over seeds")
+
+    conj_runs = {}
+    for k, kind in enumerate(kinds):
+        pf, rec = counted(f"conjugate {kind}", make(kind), N_SAMPLER,
+                          160 + k)
+        m, v = post_stats(pf)
+        sd = spread[kind]
+        rec.update(exact_logLt=exact, abs_diff=abs(rec["logLt"] - exact),
+                   tolerance=LOGLT_TOL,
+                   err_in_spread_sd=abs(rec["logLt"] - exact)
+                   / sd["logLt_sd"],
+                   posterior_mean=m, exact_posterior_mean=post_mean,
+                   posterior_var=v, exact_posterior_var=post_var,
+                   mean_err_in_spread_sd=abs(m - post_mean) / sd["mean_sd"])
+        _check(rec["abs_diff"] < LOGLT_TOL,
+               f"phase 16 conjugate {kind}: |logLt - exact| "
+               f"{rec['abs_diff']}")
+        _check(rec["mean_err_in_spread_sd"] < SAMPLER_SDS,
+               f"phase 16 conjugate {kind}: posterior mean {m}, exact "
+               f"{post_mean}, {rec['mean_err_in_spread_sd']} sd")
+        rec["ms_per_step"] = warm(make(kind), N_SAMPLER, 170 + k)
+        rec["ratio_to_main_path"] = rec["ms_per_step"] / main_ms
+        conj_runs[kind] = rec
+        progress(f"conjugate {kind}")
+
+    # AdaptiveTempering, not waste-free, the adaptive move: a read a chain
+    # step on top of done's; each move's chain steps counted
+    moves = []
+
+    class CountedMove(ssp.AdaptiveMCMCSequence):
+        def __call__(self, gen, x, target, draws=None):
+            steps = []
+            step_with = self.mcmc.step_with
+
+            def counting(*a, **kw):
+                steps.append(1)
+                return step_with(*a, **kw)
+
+            self.mcmc.step_with = counting
+            try:
+                return super().__call__(gen, x, target, draws)
+            finally:
+                del self.mcmc.step_with
+                moves.append(len(steps))
+
+    move = CountedMove(len_chain=ADAPTIVE_LEN_CHAIN, adaptive=True)
+
+    def reads(steps):
+        # done's reads, and the move's: after each chain step but the
+        # last a move may take
+        return steps + 1 + sum(min(k, move.nsteps - 1) for k in moves)
+
+    pf, rec = counted("conjugate AdaptiveTempering adaptive move",
+                      ssp.AdaptiveTempering(model=conj, wastefree=False,
+                                            move=move),
+                      N_SAMPLER_SPREAD, 180, reads=reads)
+    rec.update(abs_diff=abs(rec["logLt"] - exact), chain_steps=moves,
+               max_chain_steps=move.nsteps)
+    _check(rec["abs_diff"] < LOGLT_TOL and pf.X.N == N_SAMPLER_SPREAD,
+           f"phase 16 adaptive move: {rec}")
+    conj_runs["AdaptiveTempering adaptive move"] = rec
+    progress("the adaptive move")
+
+    # multiSMC, stratified (B3) and multinomial (B3, B5), N0 = 2^16
+    _zero_counts(ops)
+    snaps = [_read_counts(ops)]
+
+    def snapshot(res):
+        snaps.append(_read_counts(ops))
+        return res
+
+    multi = multiSMC(fk=make("AdaptiveTempering"),
+                     N=M_s, nruns=1, seed=16,
+                     resampling=["stratified", "multinomial"],
+                     out_func=snapshot)
+    multi_rec = {}
+    for k, entry in enumerate(multi):
+        scheme, res = entry["resampling"], entry["output"]
+        n_rs = int(res.rs_flags.sum())
+        launched = {n: snaps[k + 1][n] - snaps[k][n] for n in ops.KERNELS}
+        all_launches[f"phase 16 multiSMC {scheme}"] = launched
+        for name, n in launched.items():
+            want = n_rs if name in SCHEME_KERNELS[scheme] else 0
+            _check(n == want and n_rs > 0, f"phase 16 multiSMC {scheme}: "
+                                           f"{name} launched {n} times")
+        multi_rec[scheme] = {"logLt": float(res.logLt),
+                             "abs_diff": abs(float(res.logLt) - exact),
+                             "resampling_steps": n_rs, "launches": launched}
+        _check(multi_rec[scheme]["abs_diff"] < LOGLT_TOL,
+               f"phase 16 multiSMC {scheme}: {multi_rec[scheme]}")
+    progress("multiSMC")
+
+    # Pima at the JAX package's shape (bench.py: N = 100, len_chain = 30),
+    # then at M = N_SAMPLER, P = P_SAMPLER with B1 and B2's inputs kept
+    pima, pima_data = logistic_model(torch, dev, "Pima")
+    b_map = newton_map(pima_data)
+    p = pima_data.shape[1]
+
+    def pima_checks(tag, pf):
+        W = pf.wgts.W.double()
+        post = np.array([float((W * pf.X.theta[f"b{j}"].double()).sum())
+                         for j in range(p)])
+        ps = float(pf.X.shared["path_sampling"])
+        rec = {"path_sampling": ps,
+               "abs_diff_path_sampling": abs(float(pf.logLt) - ps),
+               "max_abs_diff_newton_map": float(np.abs(post - b_map).max()),
+               "exponent": float(pf.X.shared["exponent"])}
+        _check(rec["abs_diff_path_sampling"] < PIMA_PS_TOL
+               and rec["max_abs_diff_newton_map"] < PIMA_MAP_TOL
+               and rec["exponent"] == 1.0, f"phase 16 {tag}: {rec}")
+        return rec
+
+    pf, rec = counted("Pima N=100", ssp.AdaptiveTempering(
+        model=pima, len_chain=PIMA_LEN_CHAIN), PIMA_N, 190)
+    rec.update(pima_checks("Pima N=100", pf))
+    rec["ms_per_step"] = warm(ssp.AdaptiveTempering(
+        model=pima, len_chain=PIMA_LEN_CHAIN), PIMA_N, 191)
+    pima_runs = {"N=100 len_chain=30": rec}
+    progress("Pima at N = 100")
+
+    kept_z, kept_serve = [], []
+    z_fn, serve = rs.systematic_z_fused, ssp.ThetaParticles.subset_by_z
+
+    def keeping_z(W, u, M):
+        z = z_fn(W, u, M)
+        kept_z.append((W, u, M, z))
+        return z
+
+    def keeping_serve(self, z, M):
+        out = serve(self, z, M)
+        kept_serve.append((z, M, self._leaves()[0], out._leaves()[0]))
+        return out
+
+    rs.systematic_z_fused = keeping_z
+    ssp.ThetaParticles.subset_by_z = keeping_serve
+    try:
+        pf, rec = counted("Pima 2^20", ssp.AdaptiveTempering(
+            model=pima, len_chain=P_SAMPLER), N_SAMPLER, 192)
+    finally:
+        rs.systematic_z_fused = z_fn
+        ssp.ThetaParticles.subset_by_z = serve
+    rec.update(pima_checks("Pima 2^20", pf))
+    # B1 and B2 on the run's own inputs: the N0 weights and every leaf
+    # served, at the first, a middle and the last resampling step
+    n = len(kept_z)
+    _check(n == rec["resampling_steps"] == len(kept_serve),
+           f"phase 16 Pima 2^20: kept {n} resampling steps")
+    for i in sorted({0, n // 2, n - 1}):
+        W, u, M, z = kept_z[i]
+        zk, dp, do, _, _ = check_b1(torch, ops, dev,
+                                    f"phase 16 Pima step {i} B1",
+                                    W.cpu().numpy(), float(u), M)
+        _check(torch.equal(zk, z), f"phase 16 Pima step {i}: B1 differs "
+                                   "from the run's z")
+        z2, M2, leaves, served = kept_serve[i]
+        _check(z2 is z and M2 == M, f"phase 16 Pima step {i}: z")
+        plain, _ = ops.repeat_cols_plain(z, M, leaves)
+        check_b2(torch, f"phase 16 Pima step {i} B2",
+                 [("sampler leaves", (served, None), (plain, None))])
+        checks.append({"tag": f"phase 16 Pima 2^20 resampling step {i}",
+                       "N": N0, "M": [M], "B1": 1, "B2": 1,
+                       "systematic_z_err": dp, "systematic_z_err_vs_float64": do,
+                       "repeat_by_z_err": 0, "leaves": len(leaves)})
+    del kept_z, kept_serve
+    rec["ms_per_step"] = warm(ssp.AdaptiveTempering(
+        model=pima, len_chain=P_SAMPLER), N_SAMPLER, 193)
+    rec["ratio_to_main_path"] = rec["ms_per_step"] / main_ms
+    pima_runs["M=2^14 P=64"] = rec
+    progress("Pima at 2^20")
+
+    # Sonar, d = 61, at M = N_SAMPLER, P = P_SAMPLER
+    sonar, _ = logistic_model(torch, dev, "Sonar")
+    pf, rec = counted("Sonar 2^20", ssp.AdaptiveTempering(
+        model=sonar, len_chain=P_SAMPLER), N_SAMPLER, 194)
+    ps = float(pf.X.shared["path_sampling"])
+    rec.update(path_sampling=ps, abs_diff_path_sampling=abs(
+        rec["logLt"] - ps), theta_bytes=sum(
+            v.numel() * v.element_size() for v in pf.X.theta.values()),
+        ms_per_step=1000.0 * rec["counted_run_s"] / pf.t)
+    _check(float(pf.X.shared["exponent"]) == 1.0 and np.isfinite(ps),
+           f"phase 16 Sonar: {rec}")
+    progress("Sonar at 2^20")
+
+    # device ms a step by CUDA kernel, from a fresh process (see phase 15)
+    tool = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "profile_torch_samplers.py")],
+        capture_output=True, text=True, timeout=600)
+    _check(tool.returncode == 0, f"phase 16: tools/profile_torch_samplers.py "
+                                 f"failed: {tool.stderr[-2000:]}")
+    prof = json.loads(tool.stdout.strip().splitlines()[-1])
+    progress("the profiler window")
+
+    _emit({"phase": 16, "nvidia_smi": smi, "M": N_SAMPLER, "P": P_SAMPLER,
+           "N0": N0, "conjugate": {"T": T_CONJ, "exact_logLt": exact,
+                                   "runs": conj_runs},
+           "spread": {"N0": N_SAMPLER_SPREAD, "seeds": SPREAD_SEEDS,
+                      **spread},
+           "multiSMC": multi_rec, "pima": pima_runs, "sonar": rec,
+           "main_path_ms_per_step": main_ms, "profile": prof,
+           "kernels_vs_plain": _path_checks_summary(checks),
+           "seconds": time.perf_counter() - t_start})
+    return all_launches, checks
+
+
 def main():
     import torch
 
@@ -2003,8 +2455,11 @@ def main():
     sqmc_launches, sqmc_checks = phase_sqmc(torch, dev, smi, y, kf_logLt,
                                             1000.0 * wall / T_MAIN)
     checks += sqmc_checks
+    sampler_launches, sampler_checks = phase_samplers(
+        torch, dev, smi, 1000.0 * wall / T_MAIN)
+    checks += sampler_checks
     # the largest error against the plain version includes the smoothing,
-    # zoo and SQMC phases' checks on their own inputs
+    # zoo, SQMC and sampler phases' checks on their own inputs
     path_err = {"systematic_z": "systematic_z_err",
                 "repeat_by_z": "repeat_by_z_err",
                 "normalised_cumsum": "normalised_cumsum_err",
@@ -2016,6 +2471,8 @@ def main():
                              for run, n in zoo_launches.items()}
         k["launches_sqmc"] = {run: n[k["name"]]
                               for run, n in sqmc_launches.items()}
+        k["launches_samplers"] = {run: n[k["name"]]
+                                  for run, n in sampler_launches.items()}
         if k["name"] in path_err:
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 c.get(path_err[k["name"]], 0) for c in checks])

@@ -12,7 +12,9 @@ the Hilbert sort (``hilbert``), the model DSL and zoo of
 ``hmm`` (the exact oracles), the weight numerics and resampling
 registries, the particle history and off-line smoothers (``smoothing``,
 QMC FFBS included), the collectors with the on-line smoothers,
-``variance_estimators``, the experiment helpers of ``utils``, and the six
+``variance_estimators``, the experiment helpers of ``utils``, the SMC
+samplers (``smc_samplers``: IBIS, fixed and adaptive tempering,
+waste-free or not) with ``variance_mcmc`` and ``datasets``, and the six
 kernels of ``ops``.  Entry points run on the current CUDA card unless
 given ``device="cpu"`` or CPU tensors.
 """
@@ -25,6 +27,7 @@ _SUBMODULES = (
     "collectors",
     "convert",
     "core",
+    "datasets",
     "distributions",
     "hilbert",
     "hmm",
@@ -32,10 +35,12 @@ _SUBMODULES = (
     "ops",
     "resampling",
     "rqmc",
+    "smc_samplers",
     "smoothing",
     "state_space_models",
     "utils",
     "variance_estimators",
+    "variance_mcmc",
 )
 
 

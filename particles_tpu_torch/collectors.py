@@ -32,11 +32,14 @@ class Collector:
     arguments declared in the class attribute ``signature`` become
     attributes.  ``uses_genealogy`` says whether the collector reads
     ``view.A`` or ``view.Xp`` (the ancestor indices are then returned by
-    the resampling kernel on resampling steps)."""
+    the resampling kernel on resampling steps).  ``host_side`` says that it
+    reads the step on the host, in numpy (the waste-free variance
+    collectors of ``smc_samplers``)."""
 
     signature = {}
     stateful = False
     uses_genealogy = True
+    host_side = False
 
     @property
     def summary_name(self):
@@ -271,6 +274,13 @@ class Summaries:
     @property
     def needs_genealogy(self):
         return any(c.uses_genealogy for c in self._collectors)
+
+    @property
+    def has_host_side(self):
+        """True if a collector reads the step on the host (numpy).  The
+        eager engine runs every collector on the step's view alike, so
+        this only informs: each such collector syncs once a step."""
+        return any(c.host_side for c in self._collectors)
 
     def init_step(self, view):
         """t=0: ``(states, outputs)``, one of each per collector."""

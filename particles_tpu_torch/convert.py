@@ -6,7 +6,10 @@ for each ``default_params`` key of a zoo model, a ``LinearGauss`` or a
 ``GaussianHMM``, or ``F``, ``G``, ``covX``, ``covY``, ``mu0``, ``cov0`` of
 an ``MVLinearGauss`` — and pass them here.  ``history_from_numpy``
 carries a run's stacked history (``np.asarray`` of a JAX ``pf.hist.X``,
-``.A`` and ``.lw``) into the port's ``ParticleHistory``.  Tensors go to
+``.A`` and ``.lw``) into the port's ``ParticleHistory``, and
+``theta_particles_from_numpy`` a sampler's ``ThetaParticles`` state
+(``np.asarray`` of each θ field, each other per-particle field and each
+``shared`` entry).  Tensors go to
 ``device``, by default the current CUDA card (with no card, pass
 ``device="cpu"``).  This module imports no JAX.
 """
@@ -17,11 +20,13 @@ import numpy as np
 import torch
 
 from particles_tpu_torch import hmm, kalman
+from particles_tpu_torch import smc_samplers
 from particles_tpu_torch import smoothing
 from particles_tpu_torch import state_space_models as ssms
 from particles_tpu_torch.utils import resolve_device
 
-__all__ = ["ssm_from_params", "bootstrap_from_numpy", "history_from_numpy"]
+__all__ = ["ssm_from_params", "bootstrap_from_numpy", "history_from_numpy",
+           "theta_particles_from_numpy"]
 
 _MODELS = {cls.__name__: cls for cls in (
     kalman.LinearGauss, kalman.MVLinearGauss,
@@ -65,20 +70,35 @@ def bootstrap_from_numpy(ssm, data, device=None):
     return ssms.Bootstrap(ssm=ssm, data=np.asarray(data), device=device)
 
 
+def _tensor(a, device):
+    """A numpy array (or scalar) as a tensor on ``device``: floating values
+    as float32, others keeping their type."""
+    a = np.asarray(a)
+    dtype = torch.float32 if np.issubdtype(a.dtype, np.floating) else None
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
 def history_from_numpy(fk, X, A, lw, device=None):
     """``ParticleHistory(fk, X, A, lw)`` from numpy arrays: ``X`` (T, N, ...)
     or a dict of such arrays, ``A`` (T, N) as int64, ``lw`` (T, N) as
     float32, on ``device``.  Floating particles become float32, others keep
     their type."""
     device = resolve_device(device)
-
-    def tensor(a):
-        a = np.asarray(a)
-        dtype = torch.float32 if np.issubdtype(a.dtype, np.floating) else None
-        return torch.tensor(a, dtype=dtype, device=device)
-
-    X = ({k: tensor(v) for k, v in X.items()} if isinstance(X, dict)
-         else tensor(X))
+    X = ({k: _tensor(v, device) for k, v in X.items()} if isinstance(X, dict)
+         else _tensor(X, device))
     return smoothing.ParticleHistory(
         fk, X, torch.tensor(np.asarray(A), dtype=torch.int64, device=device),
-        tensor(lw))
+        _tensor(lw, device))
+
+
+def theta_particles_from_numpy(theta, fields=None, shared=None, device=None):
+    """A ``smc_samplers.ThetaParticles`` from numpy arrays: ``theta`` a dict
+    of (N,) or (N, d) arrays, ``fields`` a dict of the other per-particle
+    arrays (``lpost``, ``llik``, ...), ``shared`` a dict of scalars or small
+    arrays, on ``device``.  Floating values become float32 (``shared``
+    scalars 0-d tensors), others keep their type."""
+    device = resolve_device(device)
+    return smc_samplers.ThetaParticles(
+        theta={k: _tensor(v, device) for k, v in theta.items()},
+        shared={k: _tensor(v, device) for k, v in (shared or {}).items()},
+        **{k: _tensor(v, device) for k, v in (fields or {}).items()})

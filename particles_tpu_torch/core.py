@@ -18,8 +18,11 @@ auxiliary filter resamples on the auxiliary weights, lw + logeta, and
 resets the weights from ``logeta`` recomputed on the served particles),
 SQMC (``qmc=True``, :func:`SQMC`; :func:`_step_qmc`), stateless and
 stateful collectors, the particle history (``store_history``),
-``multiSMC`` (one run after another).  Not yet: the samplers (ROADMAP
-queue A); asking for one raises ``NotImplementedError``.
+``multiSMC`` (one run after another), and the SMC samplers: a
+Feynman-Kac model with ``is_sampler`` (``smc_samplers.IBIS``,
+``Tempering``, ``AdaptiveTempering``) runs through
+:func:`particles_tpu_torch.smc_samplers.sampler_next`, with its own
+history (``smc_samplers.SamplerHistory``).
 """
 
 from __future__ import annotations
@@ -339,6 +342,14 @@ class SMC:
     scrambled Sobol points, with no host sync; ``resampling`` and
     ``ESSrmin`` are not read.  The particles are kept in Hilbert order,
     and the history says so (``hilbert_ordered``, which QMC FFBS needs).
+
+    A sampler (``fk.is_sampler``) steps by
+    :func:`smc_samplers.sampler_next`: ``N`` is the number of starting
+    points a resample picks (a waste-free sampler carries N·len_chain
+    particles), ``resampling`` must be a counts-based scheme
+    (``resampling.rs_counts_funcs``), the device defaults to that of
+    ``fk.model.data``, and ``store_history`` fills a
+    :class:`smc_samplers.SamplerHistory`.
     """
 
     def __init__(self, fk=None, N=100, seed=0, generator=None, device=None,
@@ -346,12 +357,15 @@ class SMC:
                  qmc=False, store_history=False, verbose=False):
         if resampling not in rs.rs_funcs:
             raise ValueError(f"{resampling} is not a valid resampling scheme")
-        if getattr(fk, "is_sampler", False):
-            raise NotImplementedError(
-                "SMC samplers are not ported to particles_tpu_torch yet "
-                "(ROADMAP A.9)")
+        self.is_sampler = getattr(fk, "is_sampler", False)
+        if self.is_sampler and resampling not in rs.rs_counts_funcs:
+            raise ValueError(f"{resampling} has no counts-based (sorted) "
+                             "form: an SMC sampler takes "
+                             f"{sorted(rs.rs_counts_funcs)}")
         if device is None:
             data = getattr(fk, "data", None)
+            if self.is_sampler:
+                data = getattr(getattr(fk, "model", None), "data", None)
             if isinstance(data, torch.Tensor):
                 device = data.device
             elif generator is not None:
@@ -372,8 +386,11 @@ class SMC:
         self.verbose = verbose
         self.summaries = (None if collect == "off"
                           else collectors.Summaries(collect))
-        self._hist_obj = smoothing.generate_hist_obj(store_history,
-                                                     hilbert_ordered=qmc)
+        # a sampler keeps its own history (smc_samplers.SamplerHistory)
+        self.hist_option = store_history
+        self._hist_obj = (None if self.is_sampler else
+                          smoothing.generate_hist_obj(store_history,
+                                                      hilbert_ordered=qmc))
         self.hist = None
         self._finalize_history()
 
@@ -418,6 +435,11 @@ class SMC:
                 self.summaries.finalize_lists()
             self._finalize_history()
             raise StopIteration
+        if self.is_sampler:
+            from particles_tpu_torch import smc_samplers
+
+            smc_samplers.sampler_next(self)
+            return
         if self.t == 0:
             carry, view, outs = _step0(self.fk, self.gen, self.N,
                                        self.ESSrmin, self.summaries,

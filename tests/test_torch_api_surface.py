@@ -19,6 +19,10 @@ PORTED = {
         "Collector", "Moments", "Fixed_lag_smooth", "Online_smooth_naive",
         "Online_smooth_ON2", "Paris",
     ],
+    "particles_tpu.datasets": [
+        "GBP_vs_USD_9798", "Nutria", "Neuro", "Pima", "Eeg", "Sonar",
+        "Boston", "Concrete", "Liver",
+    ],
     "particles_tpu.distributions": [
         "ProbDist", "LocScaleDist", "Normal", "MvNormal", "Logistic",
         "Laplace", "Beta", "Gamma", "InvGamma", "LogNormal", "Uniform",
@@ -42,6 +46,9 @@ PORTED = {
         "inverse_cdf", "uniform_spacings", "MultinomialQueue", "wquantiles",
     ],
     "particles_tpu.rqmc": ["sobol", "halton", "latin", "safe_generate"],
+    "particles_tpu.smc_samplers": [
+        n for n in REFERENCE_SURFACE["particles_tpu.smc_samplers"]
+        if n != "SMC2"],
     "particles_tpu.smoothing": [
         "ParticleHistory", "PartialParticleHistory",
         "RollingParticleHistory", "generate_hist_obj", "smoothing_worker",
@@ -57,18 +64,18 @@ PORTED = {
                             "seeder"],
     "particles_tpu.variance_estimators": ["Var", "Var_logLt",
                                           "Lag_based_var"],
+    "particles_tpu.variance_mcmc": [
+        "MCMC_variance", "AutoCovarianceCalculator",
+        "autocovariance_fft_single", "default_collector",
+    ],
 }
 
-# by ROADMAP item: A.9 samplers, A.10 the outer loops
+# by ROADMAP item: A.10 the outer loops (SMC2 among them)
 MISSING = {
     "particles_tpu.binary_smc": [
         "Bernoulli", "NestedLogistic", "BinaryMetropolis",
         "chol_and_friends", "VariableSelection", "BayesianVS",
         "BayesianVS_gprior", "all_binary_words",
-    ],
-    "particles_tpu.datasets": [
-        "GBP_vs_USD_9798", "Nutria", "Neuro", "Pima", "Eeg", "Sonar",
-        "Boston", "Concrete", "Liver",
     ],
     "particles_tpu.mcmc": [
         "MCMC", "VanishCovTracker", "GenericRWHM", "BasicRWHM", "PMMH",
@@ -78,12 +85,7 @@ MISSING = {
         "NestedParticles", "NestedSampling", "Nested_RWmoves",
         "NestedSamplingSMC", "MeanCovTracker", "unif_minus_one",
     ],
-    "particles_tpu.smc_samplers": list(
-        REFERENCE_SURFACE["particles_tpu.smc_samplers"]),
-    "particles_tpu.variance_mcmc": [
-        "MCMC_variance", "AutoCovarianceCalculator",
-        "autocovariance_fft_single", "default_collector",
-    ],
+    "particles_tpu.smc_samplers": ["SMC2"],
 }
 
 

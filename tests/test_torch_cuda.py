@@ -844,3 +844,150 @@ def test_qmc_ffbs_on_the_card(dev):
     assert paths.device == dev and bool(torch.isfinite(paths).all())
     np.testing.assert_allclose(paths.mean(1).cpu().numpy(),
                                kf.smth.mean[:, 0].numpy(), atol=0.15)
+
+
+def _conjugate_sampler_model(dev, T=30):
+    """The conjugate Gaussian mean model of tests/test_torch_samplers.py,
+    its data on the card, and its exact log-evidence."""
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import smc_samplers as ssp
+
+    class GaussianMean(ssp.StaticModel):
+        def logpyt(self, theta, t):
+            return dists.Normal(loc=theta["mu"]).logpdf(self.data[t])
+
+    y = np.random.default_rng(0).normal(loc=1.5, size=T).astype(np.float32)
+    model = GaussianMean(data=torch.from_numpy(y).to(dev),
+                         prior=dists.StructDist({"mu": dists.Normal()}))
+    # y ~ N(0, I + 11^T): log det = log(1 + T), inverse I - 11^T / (1 + T)
+    s = float(y.astype(np.float64).sum())
+    q = float((y.astype(np.float64) ** 2).sum()) - s * s / (1 + T)
+    exact = -0.5 * (T * np.log(2 * np.pi) + np.log(1 + T) + q)
+    return model, exact
+
+
+@pytest.mark.parametrize("cls", ["IBIS", "Tempering", "AdaptiveTempering"])
+def test_sampler_steps_sync_only_on_the_declared_read(dev, cls):
+    """A sampler step reads one device value on the host: the resampling
+    decision (IBIS, Tempering; returned here as a host bool) or none
+    (AdaptiveTempering, whose read is ``done``'s exponent test).  With
+    synchronising operations made errors, resample-move steps run
+    through B1 and B2: calibration, the waste-free move, the bisection
+    and the path sampling stay on the card."""
+    from particles_tpu_torch import smc_samplers as ssp
+
+    model, _ = _conjugate_sampler_model(dev)
+    kw = {"exponents": np.linspace(0.1, 1.0, 5)} if cls == "Tempering" else {}
+    fk = getattr(ssp, cls)(model=model, len_chain=4, **kw)
+    declared = fk.time_to_resample
+
+    def host_decision(view):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return bool(declared(view))
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    fk.time_to_resample = host_decision
+    N = 256
+    gen = torch.Generator(device=dev).manual_seed(0)
+    carry, _ = ssp._sampler_step0(fk, gen, N)
+    torch.cuda.synchronize()
+    b1, b2 = ops.systematic_z_fused.launches, ops.repeat_cols.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 4):
+            carry, view = ssp._sampler_step(fk, gen, carry, t, N,
+                                            "systematic", 1.1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert view.rs_flag is True and carry.X.N == 4 * N
+    assert ops.systematic_z_fused.launches - b1 == 3
+    assert ops.repeat_cols.launches - b2 == 3
+    assert bool(torch.isfinite(carry.logLt))
+
+
+def test_adaptive_move_reads_once_a_chain_step(dev):
+    """AdaptiveMCMCSequence(adaptive=True) reads its stopping test once a
+    chain step and nothing else."""
+    import warnings
+
+    from particles_tpu_torch import smc_samplers as ssp
+
+    model, _ = _conjugate_sampler_model(dev)
+    move = ssp.AdaptiveMCMCSequence(len_chain=20, adaptive=True)
+    fk = ssp.AdaptiveTempering(model=model, wastefree=False, move=move)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    carry, _ = ssp._sampler_step0(fk, gen, 4096)
+    steps = []
+    step_with = move.mcmc.step_with
+
+    def counted(*a, **kw):
+        steps.append(1)
+        return step_with(*a, **kw)
+
+    move.mcmc.step_with = counted
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            carry, _ = ssp._sampler_step(fk, gen, carry, 1, 4096,
+                                         "systematic", 0.5)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    assert 1 <= len(steps) <= move.nsteps
+    assert syncs == min(len(steps), move.nsteps - 1)
+    assert 0.0 < float(carry.X.shared["acc_rate"]) <= 1.0
+
+
+def test_wastefree_resample_kernels_match_plain(dev):
+    """B1 and B2 at the waste-free shape, M starting points of N0 = 64 M:
+    z within 1 of the plain version, every leaf served exactly, and
+    ceil(leaves / 8) launches of B2."""
+    from particles_tpu_torch import smc_samplers as ssp
+
+    M = 2 ** 10
+    N0 = 64 * M
+    W = torch.from_numpy(_weights_dirichlet(N0, 0.5, 3)).to(dev)
+    u = torch.tensor(0.61, device=dev)
+    z = ops.systematic_z_fused(W, u, M)
+    zp = ops.systematic_z_plain(W, u, M)
+    assert int((z.long() - zp.long()).abs().max()) <= 1
+    assert int(z[-1]) == M
+    gen = torch.Generator(device=dev).manual_seed(4)
+    theta = {f"b{j}": torch.randn(N0, device=dev, generator=gen)
+             for j in range(9)}
+    x = ssp.ThetaParticles(theta=theta, lpost=torch.randn(N0, device=dev),
+                           lprior=torch.randn(N0, device=dev),
+                           llik=torch.randn(N0, device=dev))
+    before = ops.repeat_cols.launches
+    served = x.subset_by_z(z, M)
+    assert ops.repeat_cols.launches - before == 2      # 12 leaves
+    leaves, _ = x._leaves()
+    want, _ = ops.repeat_cols_plain(z, M, leaves)
+    got, _ = served._leaves()
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == (M,) and torch.equal(g, w)
+
+
+def test_samplers_on_the_card(dev):
+    """IBIS and waste-free AdaptiveTempering on the card (the default
+    device of the model's data) within 0.5 of the exact evidence; B1 and
+    B2 once a resampling step, no other kernel."""
+    from particles_tpu_torch import smc_samplers as ssp
+
+    model, exact = _conjugate_sampler_model(dev)
+    for fk in (ssp.IBIS(model=model, len_chain=8),
+               ssp.AdaptiveTempering(model=model, len_chain=8)):
+        before = {k: f.launches for k, f in ops.KERNELS.items()}
+        pf = SMC(fk=fk, N=2 ** 11, seed=0)
+        pf.run()
+        n_rs = int(pf.summaries.rs_flags.sum())
+        assert pf.X.theta["mu"].device == dev and n_rs > 0
+        assert abs(float(pf.logLt) - exact) < 0.5
+        for k, f in ops.KERNELS.items():
+            want = n_rs if k in ("systematic_z", "repeat_by_z") else 0
+            assert f.launches - before[k] == want, (type(fk), k)

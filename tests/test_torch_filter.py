@@ -22,7 +22,8 @@ import particles_tpu.ops.z_kernel as zk
 import particles_tpu.resampling as jrs
 import particles_tpu.state_space_models as jssms
 import particles_tpu_torch.resampling as trs
-from particles_tpu_torch import collectors, convert, core, kalman, ops
+from particles_tpu_torch import (collectors, convert, core, distributions,
+                                 kalman, ops, smc_samplers)
 from particles_tpu_torch import state_space_models as ssms
 
 PARAMS = dict(rho=0.9, sigmaX=1.0, sigmaY=0.2)
@@ -256,13 +257,23 @@ def test_genealogy_collector_gets_ancestors():
 def test_unported_options_raise():
     _, tfk = _models(_simulate(5, 5))
 
-    # the samplers (A.9) are not ported yet; SQMC (A.8) is, and runs,
-    # resampling at every step
-    class Sampler(type(tfk)):
-        is_sampler = True
+    # the samplers (A.9) are ported now: an IBIS Feynman-Kac model runs
+    # through the sampler step (N0 = N * len_chain particles, one
+    # observation a step); SQMC (A.8) runs, resampling at every step
+    class Mean(smc_samplers.StaticModel):
+        def logpyt(self, theta, t):
+            return distributions.Normal(loc=theta["mu"]).logpdf(self.data[t])
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        core.SMC(fk=Sampler(ssm=tfk.ssm, data=tfk.data), N=64)
+    model = Mean(data=tfk.data, prior=distributions.StructDist(
+        {"mu": distributions.Normal()}))
+    ibis = core.SMC(fk=smc_samplers.IBIS(model=model, len_chain=4), N=64,
+                    seed=0)
+    ibis.run()
+    assert ibis.t == 5 and ibis.X.N == 256 and ibis.X.lpost.shape == (256,)
+    assert np.isfinite(float(ibis.logLt))
+    with pytest.raises(ValueError, match="counts-based"):
+        core.SMC(fk=smc_samplers.IBIS(model=model), N=64,
+                 resampling="killing")
     sqmc = core.SMC(fk=tfk, N=64, qmc=True, seed=0)
     sqmc.run()
     assert sqmc.qmc and bool(sqmc.summaries.rs_flags[1:].all())
