@@ -196,10 +196,42 @@ not 0 and no result line is printed.  It exits with an error at once when
     ``tools/profile_torch_samplers.py``, run in a fresh process, device ms
     a step by CUDA kernel, CUDA kernels a step and the busy share.
 
+17. The outer loops over a filter.  SMC² (``smc_samplers.SMC2``) on
+    ``StochVolLeverage`` over the GBP/USD series (T = 751), Ntheta = 1000,
+    init_Nx = 100, len_chain = 4, ar_to_increase_Nx = 0.1, ESSrmin = 0.5,
+    the prior of the JAX package's ``bench.py``: logLt finite, each
+    move's acceptance rate in (0, 1), the posterior means, the Nx
+    history; B1 and B2 launched once a resampling step (8 leaves: one B2
+    launch) and no other kernel; host syncs one a step plus the exchange
+    step's read after each resample-move; B1 (phase 2's tolerance) and B2
+    (exact, the inner filters' (Nx,) rows as payloads) on the run's own
+    inputs at its first, a middle and its last resampling step.  SMC² on
+    the fixed-sigma LinearGauss with rho ~ U(-0.99, 0.99) (T = 100,
+    Ntheta = 2^12, init_Nx = 2^9, 4 seeds) against the Kalman grid
+    evidence and posterior mean: |mean logLt - exact| < 0.4, |mean
+    posterior mean - exact| < 0.25 (the JAX test's tolerances).  PMMH on
+    StochVol (y simulated from mu = -1, rho = 0.9, sigma = 0.3, T = 200,
+    Nx = 100, 8 chains, ``bench.py``'s prior) for PMMH_NITER iterations
+    (the deployment's 3000 cut to fit the phase): every chain's
+    acceptance rate in (0.05, 0.9), the chain loop under
+    ``torch.cuda.set_sync_debug_mode("error")``.  PMMH on the fixed-sigma
+    LinearGauss (T = 25, Nx = 200, 8 chains, 2000 iterations) against the
+    Kalman grid posterior: pooled mean within 0.15, sd ratio in (0.3, 3).
+    CSMC on LinearGauss (T = 100, N = 2^16): particle 0 equal to xstar
+    and ancestor 0 at every t, exactly; B3, B5 and B2 launched once a
+    step and no other kernel; the steps under the "error" sync guard; B3
+    and B5 held to their plain versions on the run's own weights.
+    Particle Gibbs (conjugate rho update, Nx = 2^14, PG_SWEEPS sweeps):
+    the chain's mean after burn-in within 0.25 of the true 0.8.  The
+    checkpoint: phase 4's run saved at t = 500 and loaded into a new
+    ``SMC`` (another seed) gives logLt and X bit for bit equal to an
+    uninterrupted run; the same for ``qmc=True`` at 2^16 and for IBIS
+    with ``store_history=3`` at phase 16's conjugate shape.
+
 Then the kernels line (with each kernel's launches on the smoothing path,
 ``launches_smoothing``, on phase 14's runs, ``launches_zoo``, on phase
-15's, ``launches_sqmc``, and on phase 16's, ``launches_samplers``) and the
-result line.
+15's, ``launches_sqmc``, on phase 16's, ``launches_samplers``, and on
+phase 17's, ``launches_outer``) and the result line.
 """
 
 import json
@@ -296,6 +328,37 @@ PIMA_N = 100
 PIMA_LEN_CHAIN = 30
 PIMA_PS_TOL = 3.0
 PIMA_MAP_TOL = 0.3
+# phase 17: the outer loops.  SMC² and PMMH at the JAX package's deployment
+# shapes (bench.py); PMMH's 3000 iterations are cut to PMMH_NITER to keep
+# the phase near two minutes
+SMC2_NTHETA = 1000
+SMC2_NX = 100
+SMC2_LEN_CHAIN = 4
+SMC2_AR = 0.1
+SMC2_ORACLE_NTHETA = 2 ** 12
+SMC2_ORACLE_NX = 2 ** 9
+SMC2_ORACLE_T = 100
+SMC2_ORACLE_SEEDS = 4
+SMC2_EV_TOL = 0.4
+SMC2_MEAN_TOL = 0.25
+PMMH_T = 200
+PMMH_NX = 100
+PMMH_CHAINS = 8
+PMMH_NITER = 250
+PMMH_ORACLE_T = 25
+PMMH_ORACLE_NX = 200
+PMMH_ORACLE_NITER = 2000
+PMMH_ORACLE_BURN = 500
+PMMH_MEAN_TOL = 0.15
+CSMC_T = 100
+CSMC_N = 2 ** 16
+PG_NX = 2 ** 14
+PG_SWEEPS = 40
+PG_BURN = 10
+PG_TOL = 0.25
+CKPT_T = 500
+CKPT_QMC_N = 2 ** 16
+CKPT_IBIS_T = 15
 # the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
 # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -501,10 +564,10 @@ def _path_checks_summary(cases):
     return {"inputs": [{k: c[k] for k in ("tag", "N", "M") if k in c}
                        for c in cases],
             "cases": {k: sum(c.get(k, 0) for c in cases)
-                      for k in ("B1", "B2", "B3", "B4")},
+                      for k in ("B1", "B2", "B3", "B4", "B5")},
             **{f"max_{k}": max(c.get(k, 0) for c in cases) for k in keys},
             "tolerance": "B1 |dz| <= 1 vs plain and float64; B3 |dcs| < "
-                         "N 2^-31 + 1e-6 vs plain and float64; B2, B4 "
+                         "N 2^-31 + 1e-6 vs plain and float64; B2, B4, B5 "
                          "exact"}
 
 
@@ -1862,6 +1925,432 @@ def phase_samplers(torch, dev, smi, main_ms):
     return all_launches, checks
 
 
+def _sync_count(torch, fn):
+    """(fn(), host syncs counted under ``set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def _no_sync(torch, fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: a host sync raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _simulate_lg(rho, sigx, sigy, T, seed):
+    """(x, y) of the linear Gaussian model from a numpy seed, float32."""
+    rng = np.random.default_rng(seed)
+    x = np.empty(T)
+    x[0] = rng.normal() * sigx / np.sqrt(1 - rho ** 2)
+    for t in range(1, T):
+        x[t] = rho * x[t - 1] + sigx * rng.normal()
+    y = x + sigy * rng.normal(size=T)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def lg_grid(y, grid, sigx, sigy):
+    """log p(y | rho) of the linear Gaussian model (stationary start) at
+    each rho of ``grid``: the scalar Kalman filter in float64, vectorised
+    over the grid."""
+    y = np.asarray(y, np.float64)
+    rho = np.asarray(grid, np.float64)
+    m, P = np.zeros_like(rho), sigx ** 2 / (1 - rho ** 2)
+    ll = np.zeros_like(rho)
+    for t in range(len(y)):
+        if t > 0:
+            m, P = rho * m, rho ** 2 * P + sigx ** 2
+        S = P + sigy ** 2
+        ll += -0.5 * (np.log(2 * np.pi * S) + (y[t] - m) ** 2 / S)
+        K = P / S
+        m, P = m + K * (y[t] - m), (1 - K) * P
+    return ll
+
+
+def _lg_fixed():
+    """The fixed-sigma linear Gaussian model of the JAX package's SMC² and
+    PMMH tests (sigmaY = 0.5, sigmaX = 1, rho the one parameter)."""
+    from particles_tpu_torch import kalman
+
+    class LGfixed(kalman.LinearGauss):
+        default_params = {"sigmaY": 0.5, "rho": 0.9, "sigmaX": 1.0,
+                          "sigma0": None}
+
+    return LGfixed
+
+
+def lg_oracle(torch, y, npoints):
+    """The evidence, posterior mean and sd of rho ~ U(-0.99, 0.99) in the
+    fixed-sigma model, by quadrature on a grid of ``npoints``; the grid's
+    log-likelihoods held to the port's ``kalman.Kalman`` at three points."""
+    from scipy.special import logsumexp
+
+    from particles_tpu_torch import kalman
+
+    LGfixed = _lg_fixed()
+    grid = np.linspace(-0.985, 0.985, npoints)
+    lls = lg_grid(y, grid, 1.0, 0.5)
+    for i in (0, npoints // 2, npoints - 1):
+        kf = kalman.Kalman(ssm=LGfixed(rho=float(grid[i])),
+                           data=torch.from_numpy(y).double())
+        _check(abs(float(kf.logLt) - lls[i]) < 1e-6,
+               f"phase 17: the grid's Kalman at rho={grid[i]}: "
+               f"{lls[i]} vs {float(kf.logLt)}")
+    ev = float(logsumexp(lls) + np.log(grid[1] - grid[0]) - np.log(1.98))
+    post = np.exp(lls - lls.max())
+    post /= post.sum()
+    mean = float(np.sum(post * grid))
+    return ev, mean, float(np.sqrt(np.sum(post * grid ** 2) - mean ** 2))
+
+
+def phase_outer(torch, dev, smi, y_main):
+    """Phase 17: the outer loops over a filter.  Each part reports its
+    seconds on stderr as it ends."""
+    import tempfile
+
+    from particles_tpu_torch import collectors, datasets, kalman, mcmc, ops
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import resampling as rs
+    from particles_tpu_torch import smc_samplers as ssp
+    from particles_tpu_torch import state_space_models as ssms
+    from particles_tpu_torch.core import SMC
+
+    t_start = time.perf_counter()
+
+    def progress(part):
+        print(f"phase 17: {part} done at "
+              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr,
+              flush=True)
+
+    all_launches, checks, out = {}, [], {}
+    LGfixed = _lg_fixed()
+    rho_prior = dists.StructDist({"rho": dists.Uniform(a=-0.99, b=0.99)})
+
+    class AccRate(collectors.Collector):
+        summary_name = "acc_rates"
+        uses_genealogy = False
+
+        def collect(self, view):
+            return view.X.shared["acc_rate"]
+
+    # -- SMC² on GBP/USD at the deployment's shape ----------------------------
+    y_gbp = datasets.GBP_vs_USD_9798().data.astype(np.float32)
+    prior = dists.StructDist({
+        "mu": dists.Normal(loc=-1.0, scale=2.0),
+        "rho": dists.Uniform(a=-0.99, b=0.99),
+        "sigma": dists.Gamma(a=2.0, b=4.0),
+        "phi": dists.Uniform(a=-0.99, b=0.99)})
+    fk = ssp.SMC2(ssm_cls=ssms.StochVolLeverage, prior=prior,
+                  data=torch.from_numpy(y_gbp).to(dev), init_Nx=SMC2_NX,
+                  len_chain=SMC2_LEN_CHAIN, ar_to_increase_Nx=SMC2_AR)
+    kept_z, kept_serve = [], []
+    z_fn, serve = rs.systematic_z_fused, ssp.ThetaParticles.subset_by_z
+
+    def keeping_z(W, u, M):
+        z = z_fn(W, u, M)
+        kept_z.append((W, u, M, z))
+        return z
+
+    def keeping_serve(self, z, M):
+        res = serve(self, z, M)
+        kept_serve.append((z, M, self._leaves()[0], res._leaves()[0]))
+        return res
+
+    _zero_counts(ops)
+    pf = SMC(fk=fk, N=SMC2_NTHETA, seed=17, ESSrmin=0.5, collect=[AccRate()])
+    rs.systematic_z_fused = keeping_z
+    ssp.ThetaParticles.subset_by_z = keeping_serve
+    try:
+        t0 = time.perf_counter()
+        next(pf)
+        torch.cuda.synchronize()
+
+        def rest():
+            for _ in pf:
+                pass
+
+        _, syncs = _sync_count(torch, rest)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rs.systematic_z_fused = z_fn
+        ssp.ThetaParticles.subset_by_z = serve
+    launches = _read_counts(ops)
+    all_launches["phase 17 SMC2 GBP/USD"] = launches
+    flags = [bool(f) for f in pf.summaries.rs_flags]
+    n_rs = sum(flags)
+    T = len(flags)
+    want_syncs = (T - 1) + sum(flags[1:T - 1])
+    _check(syncs == want_syncs, f"phase 17 SMC2: {syncs} host syncs, "
+                                f"expected {want_syncs}")
+    leaves = len(pf.X._leaves()[0])
+    for name, n in launches.items():
+        per = -(-leaves // ops.MAX_PAYLOADS) if name == "repeat_by_z" else 1
+        want = n_rs * per if name in ("systematic_z", "repeat_by_z") else 0
+        _check(n == want and n_rs > 0, f"phase 17 SMC2: {name} launched {n} "
+                                       f"times, {n_rs} resampling steps")
+    logLt = float(pf.logLt)
+    accs = [float(a) for a, f in zip(pf.summaries.acc_rates, flags) if f]
+    _check(np.isfinite(logLt), f"phase 17 SMC2: logLt {logLt}")
+    _check(all(0.0 < a < 1.0 for a in accs), f"phase 17 SMC2: acceptance "
+                                             f"rates {accs}")
+    W = pf.wgts.W.double()
+    post = {k: float((W * v.double()).sum()) for k, v in pf.X.theta.items()}
+    _check(all(np.isfinite(v) for v in post.values()),
+           f"phase 17 SMC2: posterior means {post}")
+    n = len(kept_z)
+    _check(n == n_rs == len(kept_serve), f"phase 17 SMC2: kept {n} steps")
+    served_bytes = []
+    for i in sorted({0, n // 2, n - 1}):
+        Wi, u, M, z = kept_z[i]
+        zk, dp, do, _, _ = check_b1(torch, ops, dev,
+                                    f"phase 17 SMC2 step {i} B1",
+                                    Wi.cpu().numpy(), float(u), M)
+        _check(torch.equal(zk, z), f"phase 17 SMC2 step {i}: B1 differs "
+                                   "from the run's z")
+        z2, M2, lv, served = kept_serve[i]
+        _check(z2 is z and M2 == M, f"phase 17 SMC2 step {i}: z")
+        plain, _ = ops.repeat_cols_plain(z, M, lv)
+        check_b2(torch, f"phase 17 SMC2 step {i} B2",
+                 [("theta-particle rows", (served, None), (plain, None))])
+        row_bytes = sum(a.element_size() * a[0].numel() for a in lv)
+        served_bytes.append({"step": i,
+                             "Nx": max(a.shape[1] for a in lv if a.ndim > 1),
+                             "row_bytes": row_bytes,
+                             "written": M * row_bytes,
+                             "rows_read": M * row_bytes,
+                             "z_read": 4 * M})
+        checks.append({"tag": f"phase 17 SMC2 resampling step {i}",
+                       "N": M, "M": [M], "B1": 1, "B2": 1,
+                       "systematic_z_err": dp,
+                       "systematic_z_err_vs_float64": do,
+                       "repeat_by_z_err": 0, "leaves": len(lv)})
+    del kept_z, kept_serve
+    out["smc2_gbp"] = {
+        "Ntheta": SMC2_NTHETA, "T": T, "init_Nx": SMC2_NX,
+        "len_chain": SMC2_LEN_CHAIN, "ar_to_increase_Nx": SMC2_AR,
+        "logLt": logLt, "posterior_means": post, "acc_rates": accs,
+        "Nx_history": [[SMC2_NX, 0]] + [[nx, t] for t, nx in fk.exchanges],
+        "final_Nx": int(pf.X.xs.shape[1]), "resampling_steps": n_rs,
+        "host_syncs": syncs, "launches": launches, "leaves": leaves,
+        "bytes_served_per_resampling_step": served_bytes,
+        "ms_per_step": 1000.0 * wall / T, "wall_s": wall}
+    progress("SMC2 on GBP/USD")
+
+    # -- SMC² against the Kalman grid -----------------------------------------
+    _, y_lg = _simulate_lg(0.8, 1.0, 0.5, SMC2_ORACLE_T, 2)
+    ev, pmean, _ = lg_oracle(torch, y_lg, 400)
+    lls, means, nxs = [], [], []
+    t0 = time.perf_counter()
+    for s in range(SMC2_ORACLE_SEEDS):
+        fk = ssp.SMC2(ssm_cls=LGfixed, prior=rho_prior,
+                      data=torch.from_numpy(y_lg).to(dev),
+                      init_Nx=SMC2_ORACLE_NX, len_chain=SMC2_LEN_CHAIN)
+        pf = SMC(fk=fk, N=SMC2_ORACLE_NTHETA, seed=170 + s)
+        pf.run()
+        lls.append(float(pf.logLt))
+        means.append(float((pf.wgts.W.double()
+                            * pf.X.theta["rho"].double()).sum()))
+    rec = {"Ntheta": SMC2_ORACLE_NTHETA, "init_Nx": SMC2_ORACLE_NX,
+           "T": SMC2_ORACLE_T, "logLt_seeds": lls, "mean_seeds": means,
+           "exact_logLt": ev, "exact_posterior_mean": pmean,
+           "abs_err_logLt": abs(float(np.mean(lls)) - ev),
+           "abs_err_mean": abs(float(np.mean(means)) - pmean),
+           "tolerances": [SMC2_EV_TOL, SMC2_MEAN_TOL],
+           "s_per_run": (time.perf_counter() - t0) / SMC2_ORACLE_SEEDS}
+    _check(rec["abs_err_logLt"] < SMC2_EV_TOL
+           and rec["abs_err_mean"] < SMC2_MEAN_TOL,
+           f"phase 17 SMC2 oracle: {rec}")
+    out["smc2_oracle"] = rec
+    progress("SMC2 against Kalman")
+
+    # -- PMMH on StochVol at the deployment's shape ---------------------------
+    y_sv = _simulate_sv(ssms.StochVol(mu=-1.0, rho=0.9, sigma=0.3), PMMH_T)
+    prior_pm = dists.StructDist({
+        "mu": dists.Normal(scale=2.0),
+        "rho": dists.Uniform(a=-0.99, b=0.99),
+        "sigma": dists.Gamma(a=2.0, b=4.0)})
+    m = mcmc.PMMH(ssm_cls=ssms.StochVol, prior=prior_pm,
+                  data=torch.from_numpy(y_sv).to(dev), Nx=PMMH_NX,
+                  niter=PMMH_NITER, nchains=PMMH_CHAINS, seed=171)
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _no_sync(torch, m._chain)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m._finish()
+    acc = [float(a) for a in m.acc_rate]
+    launches = _read_counts(ops)
+    _check(all(0.05 < a < 0.9 for a in acc), f"phase 17 PMMH StochVol: "
+                                             f"acceptance rates {acc}")
+    _check(not any(launches.values()), f"phase 17 PMMH: {launches}")
+    chain = {k: v.cpu().numpy() for k, v in m.chain.theta.items()}
+    burn = PMMH_NITER // 4
+    out["pmmh_stochvol"] = {
+        "T": PMMH_T, "Nx": PMMH_NX, "nchains": PMMH_CHAINS,
+        "niter": PMMH_NITER, "niter_deployment": 3000, "acc_rates": acc,
+        "posterior_means": {k: float(v[burn:].mean())
+                            for k, v in chain.items()},
+        "host_syncs_in_chain_loop": 0, "launches": launches,
+        "ms_per_iteration": 1000.0 * wall / (PMMH_NITER - 1),
+        "wall_s": wall}
+    progress("PMMH on StochVol")
+
+    # -- PMMH against the Kalman grid -----------------------------------------
+    _, y_pm = _simulate_lg(0.8, 1.0, 0.5, PMMH_ORACLE_T, 3)
+    _, pm_mean, pm_sd = lg_oracle(torch, y_pm, 100)
+    m = mcmc.PMMH(ssm_cls=LGfixed, prior=rho_prior,
+                  data=torch.from_numpy(y_pm).to(dev), Nx=PMMH_ORACLE_NX,
+                  niter=PMMH_ORACLE_NITER, nchains=PMMH_CHAINS, seed=172)
+    t0 = time.perf_counter()
+    m.run()
+    pooled = m.chain.theta["rho"][PMMH_ORACLE_BURN:].cpu().numpy().ravel()
+    rec = {"T": PMMH_ORACLE_T, "Nx": PMMH_ORACLE_NX, "nchains": PMMH_CHAINS,
+           "niter": PMMH_ORACLE_NITER, "burn": PMMH_ORACLE_BURN,
+           "pooled_mean": float(pooled.mean()), "exact_mean": pm_mean,
+           "sd_ratio": float(pooled.std() / pm_sd),
+           "acc_rates": [float(a) for a in m.acc_rate],
+           "ms_per_iteration": 1000.0 * m.cpu_time / (PMMH_ORACLE_NITER - 1)}
+    _check(abs(rec["pooled_mean"] - pm_mean) < PMMH_MEAN_TOL
+           and 0.3 < rec["sd_ratio"] < 3.0, f"phase 17 PMMH oracle: {rec}")
+    out["pmmh_oracle"] = rec
+    progress("PMMH against Kalman")
+
+    # -- CSMC and Particle Gibbs ----------------------------------------------
+    y_cs = y_main[:CSMC_T]
+    xstar = torch.from_numpy(kalman_targets(y_cs, 1)["mean"].astype(
+        np.float32)).to(dev)
+    fk = ssms.Bootstrap(ssm=kalman.LinearGauss(rho=RHO, sigmaX=SIGX,
+                                               sigmaY=SIGY),
+                        data=torch.from_numpy(y_cs).to(dev))
+    cpf = mcmc.CSMC(fk=fk, N=CSMC_N, xstar=xstar, seed=173)
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _no_sync(torch, cpf._run)
+    torch.cuda.synchronize()
+    csmc_ms = 1000.0 * (time.perf_counter() - t0) / (CSMC_T - 1)
+    launches = _read_counts(ops)
+    all_launches["phase 17 CSMC"] = launches
+    for name, n in launches.items():
+        want = (CSMC_T - 1 if name in ("normalised_cumsum",
+                                       "merge_rank_counts", "repeat_by_z")
+                else 0)
+        _check(n == want, f"phase 17 CSMC: {name} launched {n} times")
+    h = cpf.hist
+    _check(torch.equal(h.X[:, 0], xstar) and bool((h.A[:, 0] == 0).all()),
+           "phase 17 CSMC: particle 0 not pinned")
+    _check(np.isfinite(float(cpf.logLt)), f"phase 17 CSMC: {cpf.logLt}")
+    gen = torch.Generator(device=dev).manual_seed(174)
+    for t in (0, CSMC_T // 2, CSMC_T - 2):
+        W = rs.Weights(h.lw[t]).W
+        cs_k, db3 = check_b3(torch, ops, dev, f"phase 17 CSMC t={t} B3",
+                             W.cpu().numpy())
+        su = rs.uniform_spacings(gen, CSMC_N)
+        zk = ops.merge_rank_counts(su, cs_k, CSMC_N)
+        _check(torch.equal(zk, ops.merge_rank_counts_plain(su, cs_k, CSMC_N)),
+               f"phase 17 CSMC t={t}: B5 differs from plain")
+        checks.append({"tag": f"phase 17 CSMC t={t}", "N": CSMC_N,
+                       "B3": 1, "B5": 1, "normalised_cumsum_err": db3,
+                       "merge_rank_counts_err": 0})
+
+    class PG(mcmc.ParticleGibbs):
+        def update_theta(self, gen, theta, x):
+            xp, xc = x[:-1], x[1:]
+            prec = (xp * xp).sum() + 1.0
+            draw = ((xp * xc).sum() / prec
+                    + torch.randn((), generator=gen, device=x.device)
+                    / prec.sqrt())
+            return {"rho": draw.clamp(-0.99, 0.99)}
+
+    _, y_pg = _simulate_lg(0.8, 1.0, 0.5, CSMC_T, 4)
+    pg = PG(ssm_cls=LGfixed, prior=rho_prior,
+            data=torch.from_numpy(y_pg).to(dev), Nx=PG_NX, niter=PG_SWEEPS,
+            seed=175)
+    pg.run()
+    pg_chain = pg.chain.theta["rho"].cpu().numpy()
+    pg_mean = float(pg_chain[PG_BURN:].mean())
+    _check(abs(pg_mean - 0.8) < PG_TOL, f"phase 17 Particle Gibbs: mean "
+                                        f"{pg_mean}, chain {pg_chain}")
+    out["csmc"] = {"T": CSMC_T, "N": CSMC_N, "pinned": True,
+                   "host_syncs_per_step": 0, "launches": launches,
+                   "logLt": float(cpf.logLt), "ms_per_step": csmc_ms}
+    out["particle_gibbs"] = {"T": CSMC_T, "Nx": PG_NX, "sweeps": PG_SWEEPS,
+                             "burn": PG_BURN, "mean": pg_mean, "true": 0.8,
+                             "ms_per_sweep": 1000.0 * pg.cpu_time
+                             / PG_SWEEPS}
+    progress("CSMC and Particle Gibbs")
+
+    # -- the checkpoint ---------------------------------------------------------
+    tmp = tempfile.mkdtemp()
+    ckpt = {}
+
+    def round_trip(tag, make, t_save, same):
+        ref = make(180)
+        for _ in ref:
+            pass
+        pf1 = make(180)
+        for _ in range(t_save):
+            next(pf1)
+        path = os.path.join(tmp, f"{len(ckpt)}.pt")
+        pf1.save_state(path)
+        pf2 = make(181)
+        pf2.load_state(path)
+        for _ in pf2:
+            pass
+        ok = same(pf2, ref)
+        ckpt[tag] = {"t_saved": t_save, "T": pf2.t, "bit_identical": ok,
+                     "logLt": float(pf2.logLt),
+                     "checkpoint_bytes": os.path.getsize(path)}
+        _check(ok, f"phase 17 checkpoint {tag}: the resumed run differs")
+
+    lg = kalman.LinearGauss(rho=RHO, sigmaX=SIGX, sigmaY=SIGY)
+    fk_main = ssms.Bootstrap(ssm=lg, data=torch.from_numpy(y_main).to(dev))
+
+    def same_filter(a, b):
+        return float(a.logLt) == float(b.logLt) and torch.equal(a.X, b.X)
+
+    round_trip("main path", lambda s: SMC(fk=fk_main, N=N_MAIN, seed=s),
+               CKPT_T, same_filter)
+    round_trip("qmc", lambda s: SMC(fk=fk_main, N=CKPT_QMC_N, seed=s,
+                                    qmc=True), CKPT_T, same_filter)
+    GaussianMean, _ = _sampler_classes()
+    y_c, _, _, _ = conjugate_targets()
+    conj = GaussianMean(data=torch.from_numpy(y_c).to(dev),
+                        prior=dists.StructDist({"mu": dists.Normal()}))
+
+    def same_ibis(a, b):
+        return (float(a.logLt) == float(b.logLt)
+                and torch.equal(a.X.theta["mu"], b.X.theta["mu"])
+                and list(a.hist.times) == list(b.hist.times)
+                and torch.equal(a.hist.X[0].theta["mu"],
+                                b.hist.X[0].theta["mu"]))
+
+    round_trip("IBIS store_history=3",
+               lambda s: SMC(fk=ssp.IBIS(model=conj, len_chain=P_SAMPLER),
+                             N=N_SAMPLER, seed=s, store_history=3),
+               CKPT_IBIS_T, same_ibis)
+    out["checkpoint"] = ckpt
+    progress("the checkpoint")
+
+    _emit({"phase": 17, "nvidia_smi": smi, **out,
+           "kernels_vs_plain": _path_checks_summary(checks),
+           "seconds": time.perf_counter() - t_start})
+    return all_launches, checks
+
+
 def main():
     import torch
 
@@ -2458,8 +2947,10 @@ def main():
     sampler_launches, sampler_checks = phase_samplers(
         torch, dev, smi, 1000.0 * wall / T_MAIN)
     checks += sampler_checks
+    outer_launches, outer_checks = phase_outer(torch, dev, smi, y)
+    checks += outer_checks
     # the largest error against the plain version includes the smoothing,
-    # zoo, SQMC and sampler phases' checks on their own inputs
+    # zoo, SQMC, sampler and outer-loop phases' checks on their own inputs
     path_err = {"systematic_z": "systematic_z_err",
                 "repeat_by_z": "repeat_by_z_err",
                 "normalised_cumsum": "normalised_cumsum_err",
@@ -2473,6 +2964,8 @@ def main():
                               for run, n in sqmc_launches.items()}
         k["launches_samplers"] = {run: n[k["name"]]
                                   for run, n in sampler_launches.items()}
+        k["launches_outer"] = {run: n[k["name"]]
+                               for run, n in outer_launches.items()}
         if k["name"] in path_err:
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 c.get(path_err[k["name"]], 0) for c in checks])

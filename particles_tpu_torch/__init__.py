@@ -14,8 +14,11 @@ registries, the particle history and off-line smoothers (``smoothing``,
 QMC FFBS included), the collectors with the on-line smoothers,
 ``variance_estimators``, the experiment helpers of ``utils``, the SMC
 samplers (``smc_samplers``: IBIS, fixed and adaptive tempering,
-waste-free or not) with ``variance_mcmc`` and ``datasets``, and the six
-kernels of ``ops``.  Entry points run on the current CUDA card unless
+waste-free or not, and SMC²) with ``variance_mcmc`` and ``datasets``,
+PMCMC (``mcmc``: random-walk Metropolis, PMMH with batched chains,
+conditional SMC and Particle Gibbs) over a batched inner filter
+(``inner_pf``), checkpoint and resume (``SMC.save_state``,
+``SMC.load_state``), and the six kernels of ``ops``.  Entry points run on the current CUDA card unless
 given ``device="cpu"`` or CPU tensors.
 """
 
@@ -31,7 +34,9 @@ _SUBMODULES = (
     "distributions",
     "hilbert",
     "hmm",
+    "inner_pf",
     "kalman",
+    "mcmc",
     "ops",
     "resampling",
     "rqmc",

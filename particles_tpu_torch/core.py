@@ -18,17 +18,20 @@ auxiliary filter resamples on the auxiliary weights, lw + logeta, and
 resets the weights from ``logeta`` recomputed on the served particles),
 SQMC (``qmc=True``, :func:`SQMC`; :func:`_step_qmc`), stateless and
 stateful collectors, the particle history (``store_history``),
-``multiSMC`` (one run after another), and the SMC samplers: a
+``multiSMC`` (one run after another), the SMC samplers: a
 Feynman-Kac model with ``is_sampler`` (``smc_samplers.IBIS``,
-``Tempering``, ``AdaptiveTempering``) runs through
+``Tempering``, ``AdaptiveTempering``, ``SMC2``) runs through
 :func:`particles_tpu_torch.smc_samplers.sampler_next`, with its own
-history (``smc_samplers.SamplerHistory``).
+history (``smc_samplers.SamplerHistory``), and checkpoint and resume
+(:meth:`SMC.save_state`, :meth:`SMC.load_state`).
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from particles_tpu_torch import collectors
@@ -312,6 +315,134 @@ def _step_qmc(fk, gen, carry, t, N, ESSrmin, summaries, need_gen,
     return carry, view, outs
 
 
+# ---------------------------------------------------------------------------
+# checkpoint: the run's objects as what torch.load(weights_only=True) reads
+# ---------------------------------------------------------------------------
+
+_TAG = "__particles_tpu_torch__"
+
+
+def _pack(obj):
+    """``obj`` as tensors, lists, tuples, dicts and numbers only: a
+    ``ThetaParticles``, a ``Weights``, a generator or a numpy value becomes
+    a dict tagged by ``_TAG``; anything else raises ``TypeError``."""
+    from particles_tpu_torch import smc_samplers
+
+    if obj is None or isinstance(obj, (bool, int, float, str,
+                                       torch.Tensor)):
+        return obj
+    if isinstance(obj, np.generic):
+        return obj.item()
+    if isinstance(obj, np.ndarray):
+        return {_TAG: "ndarray", "v": torch.from_numpy(obj.copy())}
+    if isinstance(obj, rs.Weights):
+        return {_TAG: "Weights", "lw": obj.lw}
+    if isinstance(obj, smc_samplers.ThetaParticles):
+        return {_TAG: "ThetaParticles", "shared": _pack(obj.shared),
+                "fields": _pack(obj._particle_fields())}
+    if isinstance(obj, torch.Generator):
+        return {_TAG: "Generator", "device": obj.device.type,
+                "state": obj.get_state()}
+    if isinstance(obj, (list, deque)):
+        return [_pack(v) for v in obj]
+    if type(obj) is tuple:
+        return tuple(_pack(v) for v in obj)
+    if isinstance(obj, dict):
+        return {k: _pack(v) for k, v in obj.items()}
+    raise TypeError(f"save_state: cannot store a {type(obj).__name__}")
+
+
+def _unpack(obj, device):
+    """The inverse of :func:`_pack`; generators are rebuilt on
+    ``device``."""
+    from particles_tpu_torch import smc_samplers
+
+    if isinstance(obj, list):
+        return [_unpack(v, device) for v in obj]
+    if isinstance(obj, tuple):
+        return tuple(_unpack(v, device) for v in obj)
+    if not isinstance(obj, dict):
+        return obj
+    tag = obj.get(_TAG)
+    if tag is None:
+        return {k: _unpack(v, device) for k, v in obj.items()}
+    if tag == "ndarray":
+        return obj["v"].cpu().numpy()
+    if tag == "Weights":
+        return rs.Weights(obj["lw"])
+    if tag == "ThetaParticles":
+        return smc_samplers.ThetaParticles(
+            shared=_unpack(obj["shared"], device),
+            **_unpack(obj["fields"], device))
+    if tag == "Generator":
+        gen = torch.Generator(device=obj["device"] if obj["device"] == "cpu"
+                              else device)
+        gen.set_state(obj["state"].cpu())
+        return gen
+    raise ValueError(f"load_state: unknown entry {tag!r}")
+
+
+def _hist_kind(smc):
+    """What the run's history is: None, ``full``, ``rolling``, ``partial``
+    or ``sampler``."""
+    if smc.is_sampler:
+        return (None if smc.hist_option is False or smc.hist_option is None
+                else "sampler")
+    h = smc._hist_obj
+    if h is None:
+        return None
+    if isinstance(h, smoothing.RollingParticleHistory):
+        return "rolling"
+    if isinstance(h, smoothing.PartialParticleHistory):
+        return "partial"
+    return "full"
+
+
+def _dump_hist(smc, kind):
+    if kind == "full":
+        return [list(f) for f in smc._hist_obj.frames]
+    if kind == "rolling":
+        h = smc._hist_obj
+        return {"X": list(h.X), "A": list(h.A), "wgts": list(h.wgts)}
+    if kind == "partial":
+        h = smc._hist_obj
+        return {"times": list(h.X), "X": list(h.X.values()),
+                "wgts": list(h.wgts.values())}
+    if kind == "sampler":
+        h = smc.hist
+        return {"X": list(h.X), "wgts": list(h.wgts),
+                "times": [int(t) for t in h.times]}
+    return None
+
+
+def _load_hist(smc, kind, dumped):
+    if kind == "full":
+        smc._hist_obj.frames = [tuple(f) for f in dumped]
+    elif kind == "rolling":
+        h = smc._hist_obj
+        for q in (h.X, h.A, h.wgts):
+            q.clear()
+        h.X.extend(dumped["X"])
+        h.A.extend(dumped["A"])
+        h.wgts.extend(dumped["wgts"])
+        smc.hist = h
+    elif kind == "partial":
+        h = smc._hist_obj
+        h.X = dict(zip(dumped["times"], dumped["X"]))
+        h.wgts = dict(zip(dumped["times"], dumped["wgts"]))
+        smc.hist = h
+    elif kind == "sampler":
+        from particles_tpu_torch.smc_samplers import SamplerHistory
+
+        # rebuilt with the live option, so that a window keeps rolling
+        h = SamplerHistory(smc.hist_option)
+        for X, w, t in zip(dumped["X"], dumped["wgts"], dumped["times"]):
+            h.X.append(X)
+            h.wgts.append(w)
+            h.times.append(t)
+        smc.hist = h
+
+
 class SMC:
     """A particle filter or SMC algorithm::
 
@@ -337,6 +468,10 @@ class SMC:
     ``t -> bool``, the frames at those times
     (:class:`smoothing.PartialParticleHistory`).  Frames stay on the device
     and add no host sync.
+
+    ``save_state(path)`` after a step and ``load_state(path)`` into a new
+    ``SMC`` built with the same model and options resume the run: the
+    steps that follow are the ones the run would have taken.
 
     ``qmc=True`` runs SQMC (:func:`_step_qmc`): every step resamples, by
     scrambled Sobol points, with no host sync; ``resampling`` and
@@ -464,6 +599,86 @@ class SMC:
 
     def __iter__(self):
         return self
+
+    # ------------------------------------------------------------------
+    # checkpoint and resume
+    # ------------------------------------------------------------------
+
+    def save_state(self, path):
+        """Checkpoint the run after its last step to ``path`` (with
+        ``torch.save``): t, the carry, the generator's state, the history,
+        the collectors' records and states.  Only tensors, lists, tuples,
+        dicts and numbers are stored, so :meth:`load_state` reads it with
+        ``weights_only=True``.  Before the first step it raises
+        ``ValueError``."""
+        if self._carry is None:
+            raise ValueError("save_state: nothing to save (run a step "
+                             "first)")
+        kind = _hist_kind(self)
+        state = {
+            "t": self.t,
+            "carry": _pack(self._carry._asdict()),
+            "rs_flag": bool(self.rs_flag),
+            "generator": {"device": self.gen.device.type,
+                          "state": self.gen.get_state()},
+            "hist_kind": kind,
+            "hist": _pack(_dump_hist(self, kind)),
+            "col_states": _pack(getattr(self, "_col_states", None)),
+            "summaries": None,
+        }
+        if self.summaries is not None:
+            state["summaries"] = {
+                c.summary_name: {
+                    "record": _pack(getattr(self.summaries, c.summary_name)),
+                    "attrs": _pack({k: v for k, v in vars(c).items()
+                                    if k not in c.signature})}
+                for c in self.summaries._collectors}
+        torch.save(state, path)
+
+    def load_state(self, path):
+        """Restore a checkpoint of :meth:`save_state` into this object,
+        built with the same model and options (its own seed does not
+        matter: the generator's state is restored), and continue with
+        ``next(pf)`` or ``pf.run()``.  A checkpoint whose history kind or
+        generator device differs from this object's raises
+        ``ValueError``."""
+        state = torch.load(path, map_location=self.device, weights_only=True)
+        kind = _hist_kind(self)
+        if state["hist_kind"] != kind:
+            raise ValueError(
+                f"load_state: the checkpoint holds a {state['hist_kind']} "
+                f"history, this SMC a {kind} one (store_history="
+                f"{self.hist_option!r})")
+        gstate = state["generator"]
+        if gstate["device"] != self.gen.device.type:
+            raise ValueError(
+                f"load_state: the checkpoint's generator ran on "
+                f"{gstate['device']}, this run's is on "
+                f"{self.gen.device.type}: its stream would differ")
+        self.gen.set_state(gstate["state"].cpu())
+        carry = _Carry(**_unpack(state["carry"], self.device))
+        self._carry = carry
+        self.t = state["t"]
+        self.X = self.Xp = carry.X
+        self.wgts = rs.Weights(carry.lw)
+        self.logLt = carry.logLt
+        self.rs_flag = state["rs_flag"]
+        self.A = self.aux = self.loglt = None
+        _load_hist(self, kind, _unpack(state["hist"], self.device))
+        col_states = _unpack(state["col_states"], self.device)
+        if col_states is not None:
+            self._col_states = col_states
+        if state["summaries"] is not None and self.summaries is not None:
+            for c in self.summaries._collectors:
+                saved = state["summaries"][c.summary_name]
+                setattr(self.summaries, c.summary_name,
+                        _unpack(saved["record"], self.device))
+                for k, v in _unpack(saved["attrs"], self.device).items():
+                    setattr(c, k, v)
+        if self.qmc:
+            # the directions the steps draw with, on the device now, as
+            # _step0 puts them (a later copy from the host would sync)
+            rqmc.load_directions(max(self.fk.du, 1) + 1, self.device)
 
     @utils.timer
     def run(self):

@@ -1,12 +1,13 @@
 """SMC samplers for static-parameter inference: IBIS, tempering, waste-free
 (PyTorch port).
 
-Counterpart of ``particles_tpu/smc_samplers.py`` (all but ``SMC2``): the
+Counterpart of ``particles_tpu/smc_samplers.py``: the
 :class:`StaticModel` and :class:`TemperingBridge` targets, the
 :class:`ThetaParticles` container, the Metropolis moves and their
 sequences (:class:`MCMCSequenceWF`, waste-free, is the default), the
 Feynman-Kac classes :class:`IBIS`, :class:`Tempering` (with its
-path-sampling estimate) and :class:`AdaptiveTempering`, the sampler step
+path-sampling estimate), :class:`AdaptiveTempering` and :class:`SMC2`
+(IBIS over θ, each θ-particle carrying a particle filter), the sampler step
 (:func:`sampler_next`, which ``core.SMC`` calls for a sampler), the
 sampler's history and the single-run waste-free variance estimators.
 
@@ -34,15 +35,25 @@ How this port runs them:
   :class:`Var_logLt` read: each leaf is written into a (P, M, ...)
   buffer, one slice a chain step.
 * **Randomness is a function of its draws.**  Every move draws from the
-  run's ``torch.Generator`` through ``draws(gen, x)`` and applies them in
-  ``step_with``; the step takes ``draws`` to replay given normals and
-  uniforms (the tests feed it the JAX package's).
+  run's ``torch.Generator`` through ``draws(gen, x, target)`` and applies
+  them in ``step_with``; the step takes ``draws`` to replay given normals
+  and uniforms (the tests feed it the JAX package's).  A target that has
+  randomness of its own (SMC²'s, which replays each proposed θ's filter)
+  has a ``draws`` method, and a step passes it what that gave, so every
+  chain step replays with fresh draws.
+* **SMC²'s inner filters are rows** of one batched filter
+  (:class:`particles_tpu_torch.inner_pf.InnerPF`, rows = θ-particles);
+  the outer resample serves each θ-particle's (Nx,) states and
+  log-weights as B2 payloads, beside the θ fields.  The exchange step
+  (Nx doubled when the last move's acceptance rate falls below
+  ``ar_to_increase_Nx``) reads that rate on the host, once a step after
+  a resample-move.
 * **The log-likelihood of all the data** (:meth:`StaticModel.loglik`) is
   one ``torch.func.vmap`` of ``logpyt`` over ``arange(T)``, in chunks of
   particles that bound its (T, n) intermediate.
 
 Single device only: the JAX package's sharded branches (``distctx``, the
-ring resamplers) are ROADMAP A.11, ``SMC2`` A.10.
+ring resamplers) are ROADMAP A.11.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import torch
 
 from particles_tpu_torch import collectors as col
 from particles_tpu_torch import core
+from particles_tpu_torch import inner_pf
 from particles_tpu_torch import ops
 from particles_tpu_torch import resampling as rs
 from particles_tpu_torch import variance_mcmc
@@ -80,6 +92,7 @@ __all__ = [
     "IBIS",
     "Tempering",
     "AdaptiveTempering",
+    "SMC2",
     "next_annealing_epn",
     "var_wf",
     "Var_phi",
@@ -468,9 +481,10 @@ class ArrayMCMC:
         """A dict of shared-state updates tuned on the weighted cloud."""
         return {}
 
-    def draws(self, gen, x):
+    def draws(self, gen, x, target=None):
         """The randomness of one step, drawn from ``gen``: a tuple that
-        :meth:`step_with` takes after ``x`` and ``target``."""
+        :meth:`step_with` takes after ``x`` and ``target``.  A ``target``
+        with a ``draws(gen, x)`` method of its own adds what that gives."""
         raise NotImplementedError
 
     def step_with(self, x, target, *draws, out=None):
@@ -480,7 +494,8 @@ class ArrayMCMC:
         raise NotImplementedError
 
     def step(self, gen, x, target, out=None):
-        return self.step_with(x, target, *self.draws(gen, x), out=out)
+        return self.step_with(x, target, *self.draws(gen, x, target),
+                              out=out)
 
 
 class ArrayMetropolis(ArrayMCMC):
@@ -490,24 +505,28 @@ class ArrayMetropolis(ArrayMCMC):
     matrix, per-particle delta log-proposal) for the standard normals
     ``z`` ((N, d)) and the current matrix ``arr``.  A step draws ``z``,
     then N uniforms for the accept test (the JAX package's ``k1`` and
-    ``k2``)."""
+    ``k2``), then, for a target with ``draws``, the target's randomness
+    (``tdraws``, passed to ``target(x, tdraws)``)."""
 
     def proposal(self, z, x, arr):
         raise NotImplementedError
 
-    def draws(self, gen, x):
+    def draws(self, gen, x, target=None):
         shape = (x.N, _width(x.theta))
         dev = gen.device
         z = torch.randn(shape, generator=gen, device=dev)
         u = torch.rand(x.N, generator=gen, device=dev)
+        if hasattr(target, "draws"):
+            return z, u, target.draws(gen, x)
         return z, u
 
-    def step_with(self, x, target, z, u, out=None):
+    def step_with(self, x, target, z, u, tdraws=None, out=None):
         arr = view_2d_array(x.theta)
         arr_prop, delta_lp = self.proposal(z, x, arr)
         # replace() keeps every other per-particle field, so the proposal
         # and the current system share one structure
-        xprop = target(x.replace(theta=theta_from_2d(arr_prop, x.theta)))
+        xx = x.replace(theta=theta_from_2d(arr_prop, x.theta))
+        xprop = target(xx) if tdraws is None else target(xx, tdraws)
         lp_acc = xprop.lpost - x.lpost + delta_lp
         # a NaN log-posterior (a proposal outside the prior's support)
         # means reject
@@ -575,8 +594,10 @@ class MCMCSequence:
     def calibrate(self, W, x):
         return self.mcmc.calibrate(W, x)
 
-    def _draws(self, gen, x, draws, i):
-        return self.mcmc.draws(gen, x) if draws is None else draws[i]
+    def _draws(self, gen, x, draws, i, target):
+        if draws is None:
+            return self.mcmc.draws(gen, x, target)
+        return draws[i]
 
     def __call__(self, gen, x, target, draws=None):
         raise NotImplementedError
@@ -601,7 +622,7 @@ class MCMCSequenceWF(MCMCSequence):
         accs = []
         for i in range(self.nsteps):
             xc, acc = self.mcmc.step_with(
-                xc, target, *self._draws(gen, xc, draws, i),
+                xc, target, *self._draws(gen, xc, draws, i, target),
                 out=[b[i + 1] for b in bufs])
             accs.append(acc)
         out = ThetaParticles(shared=dict(x.shared), **unflatten(
@@ -634,7 +655,7 @@ class AdaptiveMCMCSequence(MCMCSequence):
         if not self.adaptive:
             for i in range(self.nsteps):
                 x, acc = self.mcmc.step_with(
-                    x, target, *self._draws(gen, x, draws, i))
+                    x, target, *self._draws(gen, x, draws, i, target))
                 accs.append(acc)
             return x.with_shared(acc_rate=_mean_of(accs, x))
         arr0 = view_2d_array(x.theta)
@@ -642,7 +663,7 @@ class AdaptiveMCMCSequence(MCMCSequence):
         i, go = 0, True
         while go and i < self.nsteps:
             x, acc = self.mcmc.step_with(
-                x, target, *self._draws(gen, x, draws, i))
+                x, target, *self._draws(gen, x, draws, i, target))
             accs.append(acc)
             diff = view_2d_array(x.theta) - arr0
             new_dist = torch.linalg.vector_norm(diff, dim=1).mean()
@@ -713,8 +734,9 @@ class FKSMCsampler(core.FeynmanKac):
         """Target of the MCMC move at time t (reads ``x.shared``)."""
         raise NotImplementedError
 
-    def logG_and_update(self, t, x):
-        """(log-potential increments, updated particles)."""
+    def logG_and_update(self, t, x, gen=None):
+        """(log-potential increments, updated particles); ``gen`` is the
+        run's generator, for a model whose update draws (SMC²)."""
         raise NotImplementedError
 
 
@@ -743,7 +765,7 @@ class IBIS(FKSMCsampler):
 
         return target
 
-    def logG_and_update(self, t, x):
+    def logG_and_update(self, t, x, gen=None):
         lpyt = self.model.logpyt(x.theta, t)
         lpyt = torch.where(torch.isnan(lpyt), -torch.inf, lpyt)
         return lpyt, x.replace(lpost=x.lpost + lpyt)
@@ -813,7 +835,7 @@ class Tempering(FKSMCsampler):
         x = x.replace(lpost=x.lpost + dl)
         return dl, x.with_shared(exponent=new_epn, path_sampling=ps)
 
-    def logG_and_update(self, t, x):
+    def logG_and_update(self, t, x, gen=None):
         epn = x.shared["exponent"]
         new_epn = epn.new_full((), float(self.exponents[t]))
         return self._logG_tempering(x, new_epn - epn, new_epn)
@@ -868,10 +890,165 @@ class AdaptiveTempering(Tempering):
     def time_to_resample(self, view):
         return True
 
-    def logG_and_update(self, t, x):
+    def logG_and_update(self, t, x, gen=None):
         epn = x.shared["exponent"]
         new_epn = next_annealing_epn(epn, self.ESSrmin, x.llik)
         return self._logG_tempering(x, new_epn - epn, new_epn)
+
+
+# ---------------------------------------------------------------------------
+# SMC²
+# ---------------------------------------------------------------------------
+
+class _ReplayTarget:
+    """SMC²'s move target at time t: prior(θ) times the likelihood of the
+    observations 0..t-1 estimated by a fresh filter of ``Nx`` particles at
+    each proposed θ (the replay, reference smc_samplers.py:1129-1143).
+    Its randomness is the generator it replays from (``draws``), so that
+    every chain step replays with fresh draws."""
+
+    def __init__(self, fk, t, Nx):
+        self.fk, self.t, self.Nx = fk, t, Nx
+
+    def draws(self, gen, x):
+        return gen
+
+    def __call__(self, xx, gen=None):
+        if gen is None:
+            raise ValueError("SMC2's move target replays each θ's filter: "
+                             "call it with a generator (its draws)")
+        xs, lws, ll = self.fk._inner(xx.theta, self.Nx).replay(gen, self.t)
+        return xx.replace(xs=xs, lws=lws, loglik=ll,
+                          lpost=self.fk.prior.logpdf(xx.theta) + ll)
+
+
+class SMC2(FKSMCsampler):
+    """SMC² (Chopin, Jacob & Papaspiliopoulos 2013): IBIS over θ in which
+    each θ-particle carries a particle filter of ``Nx`` particles for its
+    likelihood (reference smc_samplers.py:1038-1167).
+
+    The particles carry ``theta``, ``xs`` (N0, Nx[, dx]) and ``lws``
+    (N0, Nx), the inner filters' states and log-weights, ``loglik``, their
+    log-likelihood estimates, and ``lpost``.  Every inner filter is a row
+    of one :class:`~particles_tpu_torch.inner_pf.InnerPF`: a step advances
+    them all at once.  The resample serves whole inner filters (their rows)
+    through B2.  The MCMC move's target replays each proposed θ's filter
+    over the observations 0..t-1 (:class:`_ReplayTarget`); the exchange
+    step (:meth:`maybe_exchange`) doubles Nx.
+
+    ``fk_cls`` is ``Bootstrap`` (the default) or ``GuidedPF``; an
+    auxiliary filter raises ``ValueError`` (the JAX package silently runs
+    a guided filter there).  ``smc_options`` takes ``resampling`` and
+    ``ESSrmin`` for the inner filters and raises on anything else.  Not
+    waste-free by default, as in the JAX package; with ``wastefree=True``
+    the inner filters' rows ride the move's (P, M, ...) buffers.
+    """
+
+    def __init__(self, ssm_cls=None, prior=None, data=None, init_Nx=100,
+                 fk_cls=None, wastefree=False, len_chain=10, move=None,
+                 ar_to_increase_Nx=-1.0, smc_options=None, device=None):
+        from particles_tpu_torch import state_space_models as ssms
+
+        super().__init__(model=StaticModel(data=data, prior=prior,
+                                           device=device),
+                         wastefree=wastefree, len_chain=len_chain, move=move)
+        self.ssm_cls = ssm_cls
+        self.prior = prior
+        self.data = self.model.data
+        self.init_Nx = init_Nx
+        self.fk_cls = ssms.Bootstrap if fk_cls is None else fk_cls
+        if getattr(self.fk_cls, "logeta", None) is not None:
+            raise ValueError(
+                f"SMC2: fk_cls={self.fk_cls.__name__} is an auxiliary "
+                "filter, which SMC2's inner step does not run (use "
+                "Bootstrap or GuidedPF)")
+        self.ar_to_increase_Nx = ar_to_increase_Nx
+        opts = dict(smc_options or {})
+        self.inner_resampling = opts.pop("resampling", "systematic")
+        self.inner_ESSrmin = float(opts.pop("ESSrmin", 0.5))
+        if opts:
+            raise ValueError(
+                f"SMC2: unsupported smc_options {sorted(opts)} "
+                "(supported: resampling, ESSrmin)")
+        schemes = inner_pf.BATCHED_SCHEMES + inner_pf.ROW_LOOP_SCHEMES
+        if self.inner_resampling not in schemes:
+            raise ValueError(f"SMC2: smc_options resampling="
+                             f"{self.inner_resampling!r}; the inner filters "
+                             f"take one of {schemes}")
+        self.exchanges = []          # (t, new Nx) of the run's exchanges
+
+    @property
+    def T(self):
+        return self.data.shape[0]
+
+    def _inner(self, theta, Nx):
+        """The inner filters of the θ-particles ``theta`` (one a row)."""
+        return inner_pf.InnerPF(self.fk_cls, self.ssm_cls, self.data, theta,
+                                Nx, resampling=self.inner_resampling,
+                                ESSrmin=self.inner_ESSrmin)
+
+    def _M0(self, gen, N0):
+        self.exchanges = []          # a new run
+        th = dict(self.prior.rvs(gen, size=N0))
+        xs, lws, ll = self._inner(th, self.init_Nx).init(gen)
+        x = ThetaParticles(theta=th, lpost=self.prior.logpdf(th) + ll,
+                           xs=xs, lws=lws, loglik=ll)
+        cal = self.move.calibrate(_uniform_weights(N0, ll), x)
+        return x.with_shared(acc_rate=_zero(ll), **cal)
+
+    def logG_and_update(self, t, x, gen=None):
+        """Advance every inner filter one step; the potential is each
+        one's likelihood increment.  At t = 0 the filters have already
+        weighted y_0 (in ``_M0``): the potential is that increment, and no
+        filter steps."""
+        if t == 0:
+            return x.loglik, x
+        xs, lws, loglt = self._inner(x.theta, x.xs.shape[1]).step(
+            gen, t, x.xs, x.lws)
+        return loglt, x.replace(xs=xs, lws=lws, loglik=x.loglik + loglt,
+                                lpost=x.lpost + loglt)
+
+    def move_target(self, t, x):
+        return _ReplayTarget(self, t, x.xs.shape[1])
+
+    # -- the exchange step (Nx doubled) -------------------------------------
+
+    def _replay_all(self, gen, x, t, new_Nx):
+        """Every θ-particle's filter run afresh with ``new_Nx`` particles
+        over the observations 0..t-1: ``(xs, lws, loglik)``."""
+        return self._inner(x.theta, new_Nx).replay(gen, t)
+
+    def maybe_exchange(self, smc):
+        """Called by the sampler step before each step t >= 1: after a
+        resample-move whose acceptance rate fell below
+        ``ar_to_increase_Nx``, double Nx (reference
+        smc_samplers.py:1099-1108, 1159-1163).  The new filters' likelihoods
+        correct the θ log-weights by ``delta = ll_new - ll_old``; logLt
+        gains the weighted mean of exp(delta), and ``log_mean_w`` is that
+        of the corrected weights, so the next step's increment is measured
+        against them.  The acceptance rate is read on the host."""
+        if self.ar_to_increase_Nx <= 0.0 or smc.t == 0 or not smc.rs_flag:
+            return
+        acc = smc.X.shared.get("acc_rate")
+        acc = 1.0 if acc is None else float(acc)     # the host read
+        if acc >= self.ar_to_increase_Nx:
+            return
+        carry = smc._carry
+        x = carry.X
+        new_Nx = 2 * x.xs.shape[1]
+        xs, lws, ll_new = self._replay_all(smc.gen, x, smc.t, new_Nx)
+        delta = ll_new - x.loglik
+        x = x.replace(xs=xs, lws=lws, loglik=ll_new, lpost=x.lpost + delta)
+        new_lw = carry.lw + delta
+        new_wgts = rs.Weights(new_lw)
+        smc._carry = carry._replace(
+            X=x, lw=new_lw,
+            logLt=carry.logLt + new_wgts.log_mean - carry.log_mean_w,
+            log_mean_w=new_wgts.log_mean)
+        smc.X, smc.wgts, smc.logLt = x, new_wgts, smc._carry.logLt
+        self.exchanges.append((smc.t, new_Nx))
+        if smc.verbose:
+            print(f"t={smc.t}: exchange step, Nx -> {new_Nx}")
 
 
 # ---------------------------------------------------------------------------
@@ -881,7 +1058,7 @@ class AdaptiveTempering(Tempering):
 def _sampler_step0(fk, gen, N, ESSrmin=None):
     """Step t=0: ``(carry, view)``."""
     X = fk.M0(gen, N)
-    G, X = fk.logG_and_update(0, X)
+    G, X = fk.logG_and_update(0, X, gen)
     wgts = rs.Weights(G)
     carry = core._Carry(X=X, lw=wgts.lw, logLt=wgts.log_mean,
                         log_mean_w=wgts.log_mean)
@@ -929,7 +1106,7 @@ def _sampler_step(fk, gen, carry, t, N, scheme, ESSrmin, draws=None):
         Xres = Xc.subset_by_z(z, N)
         X = fk.move(gen, Xres, fk.move_target(t, Xc), draws=draws.get("move"))
         lw = torch.zeros(N0, dtype=lw.dtype, device=lw.device)
-    G, X = fk.logG_and_update(t, X)
+    G, X = fk.logG_and_update(t, X, gen)
     new_wgts = rs.Weights(lw + G)
     if rs_flag:
         loglt = new_wgts.log_mean
@@ -997,6 +1174,8 @@ def sampler_next(smc):
         if smc.summaries is not None:
             smc._col_states, outs = smc.summaries.init_step(view)
     else:
+        if hasattr(fk, "maybe_exchange"):
+            fk.maybe_exchange(smc)
         carry, view = _sampler_step(fk, smc.gen, smc._carry, smc.t, smc.N,
                                     smc.resampling, smc.ESSrmin)
         if smc.summaries is not None:

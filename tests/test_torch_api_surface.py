@@ -46,9 +46,12 @@ PORTED = {
         "inverse_cdf", "uniform_spacings", "MultinomialQueue", "wquantiles",
     ],
     "particles_tpu.rqmc": ["sobol", "halton", "latin", "safe_generate"],
-    "particles_tpu.smc_samplers": [
-        n for n in REFERENCE_SURFACE["particles_tpu.smc_samplers"]
-        if n != "SMC2"],
+    "particles_tpu.mcmc": [
+        "MCMC", "VanishCovTracker", "GenericRWHM", "BasicRWHM", "PMMH",
+        "CSMC", "GenericGibbs", "ParticleGibbs",
+    ],
+    "particles_tpu.smc_samplers": REFERENCE_SURFACE[
+        "particles_tpu.smc_samplers"],
     "particles_tpu.smoothing": [
         "ParticleHistory", "PartialParticleHistory",
         "RollingParticleHistory", "generate_hist_obj", "smoothing_worker",
@@ -70,22 +73,17 @@ PORTED = {
     ],
 }
 
-# by ROADMAP item: A.10 the outer loops (SMC2 among them)
+# by ROADMAP item: A.10 the outer loops (nested and binary SMC)
 MISSING = {
     "particles_tpu.binary_smc": [
         "Bernoulli", "NestedLogistic", "BinaryMetropolis",
         "chol_and_friends", "VariableSelection", "BayesianVS",
         "BayesianVS_gprior", "all_binary_words",
     ],
-    "particles_tpu.mcmc": [
-        "MCMC", "VanishCovTracker", "GenericRWHM", "BasicRWHM", "PMMH",
-        "CSMC", "GenericGibbs", "ParticleGibbs",
-    ],
     "particles_tpu.nested": [
         "NestedParticles", "NestedSampling", "Nested_RWmoves",
         "NestedSamplingSMC", "MeanCovTracker", "unif_minus_one",
     ],
-    "particles_tpu.smc_samplers": ["SMC2"],
 }
 
 

@@ -991,3 +991,138 @@ def test_samplers_on_the_card(dev):
         for k, f in ops.KERNELS.items():
             want = n_rs if k in ("systematic_z", "repeat_by_z") else 0
             assert f.launches - before[k] == want, (type(fk), k)
+
+
+# ---------------------------------------------------------------------------
+# the outer loops: PMMH, CSMC, SMC², the checkpoint
+# ---------------------------------------------------------------------------
+
+def _count_syncs(fn):
+    """(fn(), host syncs under set_sync_debug_mode("warn"))."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def test_pmmh_chain_loop_syncs_never(dev):
+    """The PMMH chain loop (4 batched chains of StochVol filters) with
+    synchronising operations made errors; the host reads the accept
+    counts only after it."""
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import mcmc
+
+    rng = np.random.default_rng(0)
+    y = (0.5 * rng.normal(size=30)).astype(np.float32)
+    prior = dists.StructDist({"mu": dists.Normal(scale=2.0),
+                              "rho": dists.Uniform(a=-0.99, b=0.99),
+                              "sigma": dists.Gamma(a=2.0, b=4.0)})
+    m = mcmc.PMMH(ssm_cls=ssms.StochVol, prior=prior,
+                  data=torch.from_numpy(y).to(dev), Nx=64, niter=20,
+                  nchains=4, seed=1)
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m._chain()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    m._finish()
+    assert m.chain.theta["rho"].shape == (20, 4)
+    assert torch.isfinite(m.chain.lpost).all()
+    assert all(f.launches == before[k] for k, f in ops.KERNELS.items())
+
+
+def test_csmc_steps_sync_never(dev):
+    """CSMC steps with synchronising operations made errors: B3, B5 and B2
+    once a step (the multinomial ancestors), particle 0 pinned."""
+    from particles_tpu_torch import mcmc
+
+    T, N = 20, 2 ** 12
+    ssm = kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
+    _, y = ssm.simulate(torch.Generator(device=dev).manual_seed(0), T)
+    xstar = torch.linspace(-1.0, 1.0, T, device=dev)
+    cpf = mcmc.CSMC(fk=ssms.Bootstrap(ssm=ssm, data=y), N=N, xstar=xstar,
+                    seed=2)
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cpf._run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for k, f in ops.KERNELS.items():
+        want = T - 1 if k in ("normalised_cumsum", "merge_rank_counts",
+                              "repeat_by_z") else 0
+        assert f.launches - before[k] == want, k
+    assert torch.equal(cpf.hist.X[:, 0], xstar)
+    assert bool((cpf.hist.A[:, 0] == 0).all())
+
+
+def test_smc2_step_syncs_once_plus_the_exchange_read(dev):
+    """An SMC² step reads the resampling decision; after a resample-move
+    the exchange step reads the acceptance rate too (here it always
+    doubles Nx).  B1 and B2 once a resampling step, no other kernel."""
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import smc_samplers as ssp
+
+    class LGfixed(kalman.LinearGauss):
+        default_params = {"sigmaY": 0.5, "rho": 0.9, "sigmaX": 1.0,
+                          "sigma0": None}
+
+    true = kalman.LinearGauss(rho=0.8, sigmaX=1.0, sigmaY=0.5)
+    _, y = true.simulate(torch.Generator(device=dev).manual_seed(0), 15)
+    fk = ssp.SMC2(ssm_cls=LGfixed,
+                  prior=dists.StructDist({"rho": dists.Uniform(a=-0.99,
+                                                               b=0.99)}),
+                  data=y, init_Nx=32, len_chain=3, ar_to_increase_Nx=1.5)
+    pf = SMC(fk=fk, N=512, seed=3)
+    next(pf)
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+
+    def rest():
+        for _ in pf:
+            pass
+
+    _, syncs = _count_syncs(rest)
+    flags = [bool(f) for f in pf.summaries.rs_flags]
+    n_rs = sum(flags)
+    assert n_rs > 0 and len(fk.exchanges) == sum(flags[1:-1])
+    assert syncs == (len(flags) - 1) + sum(flags[1:-1])
+    for k, f in ops.KERNELS.items():
+        want = n_rs if k in ("systematic_z", "repeat_by_z") else 0
+        assert f.launches - before[k] == want, k
+    assert torch.isfinite(pf.logLt)
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """The bootstrap filter at 2^14 saved at t = 20 and loaded into a new
+    SMC (another seed) runs on bit for bit; a CUDA generator's state does
+    not load into a CPU run."""
+    ssm = kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
+    _, y = ssm.simulate(torch.Generator(device=dev).manual_seed(0), 50)
+    fk = ssms.Bootstrap(ssm=ssm, data=y)
+    ref = SMC(fk=fk, N=2 ** 14, seed=7, store_history=4)
+    for _ in ref:
+        pass
+    pf1 = SMC(fk=fk, N=2 ** 14, seed=7, store_history=4)
+    for _ in range(20):
+        next(pf1)
+    path = tmp_path / "ckpt.pt"
+    pf1.save_state(path)
+    pf2 = SMC(fk=fk, N=2 ** 14, seed=99, store_history=4)
+    pf2.load_state(path)
+    for _ in pf2:
+        pass
+    assert float(pf2.logLt) == float(ref.logLt)
+    assert torch.equal(pf2.X, ref.X)
+    assert all(torch.equal(a, b) for a, b in zip(pf2.hist.X, ref.hist.X))
+    fk_cpu = ssms.Bootstrap(ssm=ssm, data=y.cpu())
+    with pytest.raises(ValueError, match="generator"):
+        SMC(fk=fk_cpu, N=2 ** 14, store_history=4).load_state(path)
