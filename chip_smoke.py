@@ -228,10 +228,45 @@ not 0 and no result line is printed.  It exits with an error at once when
     uninterrupted run; the same for ``qmc=True`` at 2^16 and for IBIS
     with ``store_history=3`` at phase 16's conjugate shape.
 
+18. Binary SMC and nested sampling.  ``binary_smc.BayesianVS`` on the
+    expanded Boston design (n = 506, p = 103: main effects, squares and
+    interactions, standardised; y the standardised log price), a dense
+    prior (Bernoulli 0.5) and a sparse one (Bernoulli 0.05, ``nu = 0``,
+    ``iv2 = 0.01``), waste-free ``AdaptiveTempering`` with
+    ``BinaryMetropolis`` at M = 100, P = 300 (N0 = 30,000), the example's
+    shape uncut: logLt finite, inclusion probabilities in [0, 1], the
+    sparse E|gamma| under the dense one, and on the real data LSTAT or RM
+    (or a square) among the dense top 15.  ``chol_and_friends`` on the
+    dense run's last N0 particles within 1e-3 (relative) of a float64
+    computation on 64 sampled rows.  The toy (n = 30, p = 5, 3 runs at
+    M = P = 100): the mean absolute error of the inclusion probabilities
+    under 0.05 against ``complete_enum``, the active predictors above the
+    inactive ones.  ``nested.NestedSamplingSMC`` (ESSrmin = 0.3) on phase
+    16's Pima model at M = 2^14, P = 64: its evidence within 6.0 of phase
+    16's Pima 2^20 logLt (the example's check); on the conjugate Gaussian
+    mean of ``examples/nested_sampling_evidence.py`` (T = 20) at N0 = 2^16
+    over 4 seeds, the mean within 0.4 of the exact evidence.
+    ``nested.Nested_RWmoves`` on that model (N = 200, nsteps = 5) within
+    1.5 of exact and on Pima (N = 100, the example's 300 cut to fit the
+    phase; nsteps = 8) within 8.0 of NS-SMC,
+    each chunk of contractions under ``set_sync_debug_mode("error")``.  In
+    the sampler runs B1 once and B2 ceil(leaves / 8) times a resampling
+    step and no other kernel, host syncs one a step (``done``'s read) plus
+    the read that ends the run; vanilla NS launches none.  B1 (phase 2's
+    tolerance) and B2 (exact, the bool (N0, 103) ``gamma`` rows among the
+    leaves) on the Boston dense run's own inputs at its first, a middle and
+    its last resampling step.  ms a step, steps, acceptance rates, bytes
+    served a resampling step, contractions and ms a contraction; from
+    ``tools/profile_torch_nested.py``, run in a fresh process, device ms
+    by CUDA kernel, CUDA kernels and the busy share of a Boston step, a
+    Boston chain step, the proposal's draw and fit, ``chol_and_friends``
+    in four equal forms, a Pima NS-SMC level and a vanilla contraction.
+
 Then the kernels line (with each kernel's launches on the smoothing path,
 ``launches_smoothing``, on phase 14's runs, ``launches_zoo``, on phase
-15's, ``launches_sqmc``, on phase 16's, ``launches_samplers``, and on
-phase 17's, ``launches_outer``) and the result line.
+15's, ``launches_sqmc``, on phase 16's, ``launches_samplers``, on phase
+17's, ``launches_outer``, and on phase 18's, ``launches_nested``) and the
+result line.
 """
 
 import json
@@ -359,6 +394,37 @@ PG_TOL = 0.25
 CKPT_T = 500
 CKPT_QMC_N = 2 ** 16
 CKPT_IBIS_T = 15
+# phase 18: binary SMC at the Boston example's shape
+# (examples/binary_smc_boston_interactions.py: n = 506, p = 103, M = 100,
+# P = 300, uncut), its toy against enumeration, NS-SMC and vanilla NS at
+# the nested examples' shapes (examples/nested_logistic.py,
+# examples/nested_sampling_evidence.py), NS-SMC widened to N0 = 2^20
+BOSTON_M = 100
+BOSTON_P = 300
+BOSTON_NAMES = ("CRIM", "ZN", "INDUS", "CHAS", "NOX", "RM", "AGE", "DIS",
+                "RAD", "TAX", "PTRATIO", "B", "LSTAT")
+TOY_N = 30
+TOY_P = 5
+TOY_M = 100
+TOY_LEN_CHAIN = 100
+TOY_SEEDS = 3
+TOY_TOL = 0.05
+CHOL_ROWS = 64
+CHOL_RTOL = 1e-3
+NS_ESSRMIN = 0.3
+NS_PIMA_TOL = 6.0
+NS_CONJ_T = 20
+NS_CONJ_N0 = 2 ** 16
+NS_CONJ_SEEDS = 4
+NS_CONJ_TOL = 0.4
+VANILLA_CONJ_N = 200
+VANILLA_CONJ_NSTEPS = 5
+VANILLA_CONJ_TOL = 1.5
+# the example's N = 300 cut to 100: at 300 the run took 89 s of the phase
+# (10,350 contractions at 8.6 ms, NVIDIA H100 80GB HBM3, 700.00 W)
+VANILLA_PIMA_N = 100
+VANILLA_PIMA_NSTEPS = 8
+VANILLA_PIMA_TOL = 8.0
 # the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
 # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1922,7 +1988,7 @@ def phase_samplers(torch, dev, smi, main_ms):
            "main_path_ms_per_step": main_ms, "profile": prof,
            "kernels_vs_plain": _path_checks_summary(checks),
            "seconds": time.perf_counter() - t_start})
-    return all_launches, checks
+    return all_launches, checks, pima_runs["M=2^14 P=64"]["logLt"]
 
 
 def _sync_count(torch, fn):
@@ -2346,6 +2412,369 @@ def phase_outer(torch, dev, smi, y_main):
     progress("the checkpoint")
 
     _emit({"phase": 17, "nvidia_smi": smi, **out,
+           "kernels_vs_plain": _path_checks_summary(checks),
+           "seconds": time.perf_counter() - t_start})
+    return all_launches, checks
+
+
+def expanded_design(raw):
+    """Main effects, squares (but of the binary CHAS) and pairwise
+    interactions of the 13 Boston predictors, standardised: (506, 103)
+    and the names (copied from examples/binary_smc_boston_interactions.py,
+    which imports JAX)."""
+    cols, names = [], []
+    base = {k: raw[:, i] for i, k in enumerate(BOSTON_NAMES)}
+    for i, k in enumerate(BOSTON_NAMES):
+        cols.append(base[k])
+        names.append(k)
+        if k != "CHAS":
+            cols.append(base[k] ** 2)
+            names.append(f"{k}^2")
+        for j in range(i):
+            k2 = BOSTON_NAMES[j]
+            cols.append(base[k] * base[k2])
+            names.append(f"{k} x {k2}")
+    X = np.stack(cols, axis=1)
+    X = (X - X.mean(axis=0)) / X.std(axis=0)
+    return X, names
+
+
+def boston_data():
+    """(X (506, 103), y the standardised log price, the predictors' names,
+    whether the data is the synthetic surrogate), X and y float32."""
+    from particles_tpu_torch import datasets
+
+    ds = datasets.Boston()
+    raw = np.asarray(ds.raw_data, np.float64)
+    y = np.log(raw[:, -1])
+    y = (y - y.mean()) / y.std()
+    X, names = expanded_design(raw[:, :-1])
+    return X.astype(np.float32), y.astype(np.float32), names, ds.synthetic
+
+
+def toy_design():
+    """The toy of tests/test_binary_smc.py cut to p = 5: (X, y, active)."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(TOY_N, TOY_P)).astype(np.float32)
+    beta = np.array([1.5, -1.0, 0.0, 0.8, 0.0], np.float32)
+    y = (X @ beta + 0.5 * rng.normal(size=TOY_N)).astype(np.float32)
+    return X, y, beta != 0
+
+
+def nested_evidence_model(torch, dev):
+    """The conjugate Gaussian mean of examples/nested_sampling_evidence.py
+    (T = 20, y from numpy seed 1): (model, exact log-evidence)."""
+    import scipy.stats as st
+
+    from particles_tpu_torch import distributions as dists
+
+    GaussianMean, _ = _sampler_classes()
+    y = np.random.default_rng(1).normal(loc=1.0, size=NS_CONJ_T).astype(
+        np.float32)
+    exact = float(st.multivariate_normal(
+        np.zeros(NS_CONJ_T), np.eye(NS_CONJ_T) + np.ones((NS_CONJ_T,
+                                                          NS_CONJ_T))
+    ).logpdf(y))
+    return GaussianMean(data=torch.from_numpy(y).to(dev),
+                        prior=dists.StructDist({"mu": dists.Normal()})), exact
+
+
+def phase_nested(torch, dev, smi, pima_logLt):
+    """Phase 18: binary SMC and nested sampling.  Each part reports its
+    seconds on stderr as it ends."""
+    from particles_tpu_torch import binary_smc as bs
+    from particles_tpu_torch import collectors, nested, ops
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import resampling as rs
+    from particles_tpu_torch import smc_samplers as ssp
+    from particles_tpu_torch.core import SMC
+
+    t_start = time.perf_counter()
+
+    def progress(part):
+        print(f"phase 18: {part} done at "
+              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr,
+              flush=True)
+
+    all_launches, checks, out = {}, [], {}
+
+    class AccRate(collectors.Collector):
+        summary_name = "acc_rates"
+        uses_genealogy = False
+
+        def collect(self, view):
+            return view.X.shared["acc_rate"]
+
+    def counted(tag, fk, M, seed, keep=False):
+        """One run through the iterator protocol: B1 once and B2
+        ceil(leaves / 8) times a resampling step and no other kernel; host
+        reads counted after step 0 (done's, before each step and once to
+        end); with ``keep``, B1's inputs and B2's leaves at every
+        resampling step.  Returns (pf, record, kept)."""
+        kept_z, kept_serve = [], []
+        z_fn, serve = rs.systematic_z_fused, ssp.ThetaParticles.subset_by_z
+
+        def keeping_z(W, u, M):
+            z = z_fn(W, u, M)
+            kept_z.append((W, u, M, z))
+            return z
+
+        def keeping_serve(self, z, M):
+            res = serve(self, z, M)
+            kept_serve.append((z, M, self._leaves()[0], res._leaves()[0]))
+            return res
+
+        _zero_counts(ops)
+        pf = SMC(fk=fk, N=M, seed=seed, collect=[AccRate()])
+        if keep:
+            rs.systematic_z_fused = keeping_z
+            ssp.ThetaParticles.subset_by_z = keeping_serve
+        try:
+            t0 = time.perf_counter()
+            next(pf)
+            torch.cuda.synchronize()
+            _, syncs = _sync_count(torch, lambda: [None for _ in pf])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            rs.systematic_z_fused = z_fn
+            ssp.ThetaParticles.subset_by_z = serve
+        launches = _read_counts(ops)
+        all_launches[f"phase 18 {tag}"] = launches
+        n_rs = int(pf.summaries.rs_flags.sum())
+        leaves = pf.X._leaves()[0]
+        per = -(-len(leaves) // ops.MAX_PAYLOADS)
+        for name, n in launches.items():
+            want = 0
+            if name in SCHEME_KERNELS["systematic"]:
+                want = n_rs * (per if name == "repeat_by_z" else 1)
+            _check(n == want and n_rs > 0,
+                   f"phase 18 {tag}: {name} launched {n} times, {n_rs} "
+                   f"resampling steps, {len(leaves)} leaves")
+        steps = pf.t - 1
+        _check(syncs == steps + 1, f"phase 18 {tag}: {syncs} host syncs in "
+                                   f"{steps} steps, expected {steps + 1}")
+        row_bytes = sum(a.element_size() * a[0].numel() for a in leaves)
+        rec = {"N": M, "N0": pf.X.N, "T": pf.t, "logLt": float(pf.logLt),
+               "resampling_steps": n_rs, "leaves": len(leaves),
+               "launches": launches, "host_syncs": syncs,
+               "acc_rates": [float(a) for a in pf.summaries.acc_rates],
+               "bytes_served_per_resampling_step": {
+                   "written": M * row_bytes, "rows_read": M * row_bytes,
+                   "z_read": 4 * pf.X.N},
+               "wall_s": wall, "ms_per_step": 1000.0 * wall / max(steps, 1)}
+        return pf, rec, (kept_z, kept_serve)
+
+    def kernels_on_kept(tag, kept, N0):
+        """B1 (phase 2's tolerance) and B2 (exact) on a run's own inputs at
+        its first, a middle and its last resampling step."""
+        kept_z, kept_serve = kept
+        n = len(kept_z)
+        _check(n == len(kept_serve) and n > 0,
+               f"phase 18 {tag}: kept {n} resampling steps")
+        for i in sorted({0, n // 2, n - 1}):
+            W, u, M, z = kept_z[i]
+            zk, dp, do, _, _ = check_b1(torch, ops, dev,
+                                        f"phase 18 {tag} step {i} B1",
+                                        W.cpu().numpy(), float(u), M)
+            _check(torch.equal(zk, z), f"phase 18 {tag} step {i}: B1 "
+                                       "differs from the run's z")
+            z2, M2, leaves, served = kept_serve[i]
+            _check(z2 is z and M2 == M, f"phase 18 {tag} step {i}: z")
+            plain, _ = ops.repeat_cols_plain(z, M, leaves)
+            check_b2(torch, f"phase 18 {tag} step {i} B2",
+                     [("sampler leaves", (served, None), (plain, None))])
+            checks.append({
+                "tag": f"phase 18 {tag} resampling step {i}", "N": N0,
+                "M": [M], "B1": 1, "B2": 1, "systematic_z_err": dp,
+                "systematic_z_err_vs_float64": do, "repeat_by_z_err": 0,
+                "leaves": len(leaves),
+                "leaf_dtypes": sorted({str(a.dtype) for a in leaves}),
+                "widest_row_bytes": max(a.element_size() * a[0].numel()
+                                        for a in leaves)})
+
+    def binary_fk(model, P):
+        move = ssp.MCMCSequenceWF(mcmc=bs.BinaryMetropolis(), len_chain=P)
+        return ssp.AdaptiveTempering(model=model, len_chain=P, move=move)
+
+    def inclusion(pf):
+        W = pf.wgts.W.double()
+        return (W[:, None] * pf.X.theta["gamma"].double()).sum(0).cpu(
+            ).numpy()
+
+    # -- binary SMC on the expanded Boston design, dense and sparse prior ----
+    X, y, names, synthetic = boston_data()
+    p = X.shape[1]
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    boston, incl = {}, {}
+    for label, q, kw, seed in (("dense", 0.5, {}, 180),
+                               ("sparse", 0.05, {"nu": 0.0, "iv2": 0.01},
+                                181)):
+        prior = dists.StructDist({"gamma": dists.IID(bs.Bernoulli(q), p)})
+        model = bs.BayesianVS(data=(Xd, yd), prior=prior, **kw)
+        pf, rec, kept = counted(f"Boston {label}",
+                                binary_fk(model, BOSTON_P), BOSTON_M, seed,
+                                keep=label == "dense")
+        inc = inclusion(pf)
+        incl[label] = inc
+        top = np.argsort(-inc)[:15]
+        rec.update(prior_p=q, model_kwargs=kw,
+                   expected_size=float(inc.sum()),
+                   top15={names[j]: float(inc[j]) for j in top},
+                   exponent=float(pf.X.shared["exponent"]))
+        _check(np.isfinite(rec["logLt"]) and rec["exponent"] == 1.0,
+               f"phase 18 Boston {label}: logLt {rec['logLt']}")
+        _check(bool(np.all((inc >= 0) & (inc <= 1 + 1e-6))),
+               f"phase 18 Boston {label}: inclusion outside [0, 1]")
+        _check(pf.X.theta["gamma"].dtype == torch.bool
+               and pf.X.N == BOSTON_M * BOSTON_P,
+               f"phase 18 Boston {label}: gamma")
+        if label == "dense":
+            kernels_on_kept(f"Boston {label}", kept, pf.X.N)
+            gamma_final, dense_model = pf.X.theta["gamma"], model
+        del kept
+        boston[label] = rec
+        progress(f"Boston {label}")
+    _check(incl["sparse"].sum() < incl["dense"].sum(),
+           f"phase 18: sparse E|gamma| {incl['sparse'].sum()} not under "
+           f"dense {incl['dense'].sum()}")
+    best = {names[j] for j in np.argsort(-incl["dense"])[:15]}
+    if not synthetic:
+        _check(bool(best & {"LSTAT", "RM", "LSTAT^2", "RM^2"}),
+               f"phase 18: the dense top 15 {best} lack LSTAT and RM")
+    out["boston"] = {"n": X.shape[0], "p": p, "M": BOSTON_M, "P": BOSTON_P,
+                     "synthetic": synthetic, "runs": boston}
+
+    # -- chol_and_friends at N0 on the card against float64 ----------------
+    N0 = gamma_final.shape[0]
+    vm2 = dense_model.iv2
+    (L, ldet, wtw), chol_ms = _sync_ms(torch, lambda: bs.chol_and_friends(
+        gamma_final, dense_model.xtx, dense_model.xty, vm2))
+    rows = np.random.default_rng(18).choice(N0, CHOL_ROWS, replace=False)
+    g = gamma_final[torch.from_numpy(rows).to(dev)].cpu().numpy()
+    X64, y64 = X.astype(np.float64), y.astype(np.float64)
+    xtx, xty = X64.T @ X64, X64.T @ y64
+    err = {"ldet": 0.0, "wtw": 0.0}
+    for i, gi in enumerate(g):
+        C = np.linalg.cholesky(xtx[np.ix_(gi, gi)]
+                               + float(vm2) * np.eye(gi.sum()))
+        w = np.linalg.solve(C, xty[gi])
+        for k, got, want in (("ldet", ldet, np.log(np.diag(C)).sum()),
+                             ("wtw", wtw, w @ w)):
+            e = abs(float(got[rows[i]]) - want) / max(abs(want), 1e-30)
+            err[k] = max(err[k], e)
+        _check(float(L[rows[i]]) == gi.sum(), "phase 18 chol: len_gam")
+    _check(max(err.values()) < CHOL_RTOL, f"phase 18 chol: {err}")
+    out["chol_and_friends"] = {"N0": N0, "p": p, "rows": CHOL_ROWS,
+                               "max_rel_err_vs_float64": err,
+                               "tolerance": CHOL_RTOL, "ms": chol_ms}
+    del gamma_final
+    progress("chol_and_friends")
+
+    # -- the toy against enumeration ----------------------------------------
+    Xt, yt, active = toy_design()
+    prior = dists.StructDist({"gamma": dists.IID(bs.Bernoulli(0.5),
+                                                 TOY_P)})
+    toy = bs.BayesianVS(data=(torch.from_numpy(Xt).to(dev),
+                              torch.from_numpy(yt).to(dev)), prior=prior)
+    gammas, lp = toy.complete_enum()
+    post = torch.softmax(lp.double(), 0)
+    exact = (gammas.double() * post[:, None]).sum(0).cpu().numpy()
+    ests = []
+    for s in range(TOY_SEEDS):
+        pf, rec, _ = counted(f"toy seed {s}", binary_fk(toy, TOY_LEN_CHAIN),
+                             TOY_M, 185 + s)
+        ests.append(inclusion(pf))
+    est = np.mean(ests, axis=0)
+    mae = float(np.abs(est - exact).mean())
+    _check(mae < TOY_TOL and est[active].min() > est[~active].max(),
+           f"phase 18 toy: {est} against {exact}")
+    out["toy"] = {"n": TOY_N, "p": TOY_P, "M": TOY_M, "P": TOY_LEN_CHAIN,
+                  "seeds": TOY_SEEDS, "inclusion": est.tolist(),
+                  "enumerated": exact.tolist(), "mean_abs_err": mae,
+                  "tolerance": TOY_TOL, "last_run": rec}
+    progress("the toy")
+
+    # -- NS-SMC: Pima at N0 = 2^20, the conjugate mean over seeds ----------
+    pima, _ = logistic_model(torch, dev, "Pima")
+    fk = nested.NestedSamplingSMC(model=pima, len_chain=P_SAMPLER,
+                                  ESSrmin=NS_ESSRMIN)
+    pf, rec, _ = counted("NS-SMC Pima", fk, N_SAMPLER, 186)
+    ns_pima = float(pf.X.shared["log_evid"])
+    rec.update(log_evid=ns_pima, levels=pf.t,
+               adaptive_tempering_logLt=pima_logLt,
+               abs_diff=abs(ns_pima - pima_logLt), tolerance=NS_PIMA_TOL,
+               last_level=float(pf.X.shared["lt"]))
+    _check(np.isfinite(ns_pima) and rec["abs_diff"] < NS_PIMA_TOL,
+           f"phase 18 NS-SMC Pima: log_evid {ns_pima}, adaptive tempering "
+           f"{pima_logLt}")
+    out["ns_smc_pima"] = rec
+    progress("NS-SMC Pima")
+    conj, exact = nested_evidence_model(torch, dev)
+    M_conj = NS_CONJ_N0 // P_SAMPLER
+    evids = []
+    for s in range(NS_CONJ_SEEDS):
+        pf, rec, _ = counted(f"NS-SMC conjugate seed {s}",
+                             nested.NestedSamplingSMC(
+                                 model=conj, len_chain=P_SAMPLER,
+                                 ESSrmin=NS_ESSRMIN), M_conj, 187 + s)
+        evids.append(float(pf.X.shared["log_evid"]))
+    _check(abs(np.mean(evids) - exact) < NS_CONJ_TOL,
+           f"phase 18 NS-SMC conjugate: {evids}, exact {exact}")
+    out["ns_smc_conjugate"] = {"T": NS_CONJ_T, "N0": NS_CONJ_N0,
+                               "log_evid_seeds": evids, "exact": exact,
+                               "abs_diff_mean": abs(np.mean(evids) - exact),
+                               "tolerance": NS_CONJ_TOL, "last_run": rec}
+    progress("NS-SMC conjugate")
+
+    # -- vanilla NS: no host read inside a chunk ----------------------------
+    def vanilla(tag, model, N, nsteps, seed):
+        ns = nested.Nested_RWmoves(model=model, N=N, nsteps=nsteps,
+                                   seed=seed)
+        chunk = ns._chunk
+        ns._chunk = lambda *a: _no_sync(torch, lambda: chunk(*a))
+        _zero_counts(ops)
+        ns.run()
+        launches = _read_counts(ops)
+        all_launches[f"phase 18 {tag}"] = launches
+        _check(all(n == 0 for n in launches.values()),
+               f"phase 18 {tag}: launched {launches}")
+        n = len(ns.lZhats)
+        rec = {"N": N, "nsteps": nsteps, "contractions": n,
+               "chunks": n // max(N // 2, 10), "lZ": float(ns.lZhats[-1]),
+               "wall_s": ns.cpu_time,
+               "ms_per_contraction": 1000.0 * ns.cpu_time / n}
+        _check(np.isfinite(rec["lZ"]), f"phase 18 {tag}: {rec}")
+        return rec
+
+    rec = vanilla("vanilla NS conjugate", conj, VANILLA_CONJ_N,
+                  VANILLA_CONJ_NSTEPS, 190)
+    rec.update(exact=exact, abs_diff=abs(rec["lZ"] - exact),
+               tolerance=VANILLA_CONJ_TOL)
+    _check(rec["abs_diff"] < VANILLA_CONJ_TOL,
+           f"phase 18 vanilla NS conjugate: {rec}")
+    out["vanilla_conjugate"] = rec
+    progress("vanilla NS conjugate")
+    rec = vanilla("vanilla NS Pima", pima, VANILLA_PIMA_N,
+                  VANILLA_PIMA_NSTEPS, 191)
+    rec.update(ns_smc=ns_pima, abs_diff=abs(rec["lZ"] - ns_pima),
+               tolerance=VANILLA_PIMA_TOL)
+    _check(rec["abs_diff"] < VANILLA_PIMA_TOL,
+           f"phase 18 vanilla NS Pima: {rec}")
+    out["vanilla_pima"] = rec
+    progress("vanilla NS Pima")
+
+    # device ms a step by CUDA kernel, from a fresh process (see phase 15)
+    tool = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "profile_torch_nested.py")],
+        capture_output=True, text=True, timeout=600)
+    _check(tool.returncode == 0, f"phase 18: tools/profile_torch_nested.py "
+                                 f"failed: {tool.stderr[-2000:]}")
+    out["profile"] = json.loads(tool.stdout.strip().splitlines()[-1])
+    progress("the profiler window")
+
+    _emit({"phase": 18, "nvidia_smi": smi, **out,
            "kernels_vs_plain": _path_checks_summary(checks),
            "seconds": time.perf_counter() - t_start})
     return all_launches, checks
@@ -2944,13 +3373,17 @@ def main():
     sqmc_launches, sqmc_checks = phase_sqmc(torch, dev, smi, y, kf_logLt,
                                             1000.0 * wall / T_MAIN)
     checks += sqmc_checks
-    sampler_launches, sampler_checks = phase_samplers(
+    sampler_launches, sampler_checks, pima_logLt = phase_samplers(
         torch, dev, smi, 1000.0 * wall / T_MAIN)
     checks += sampler_checks
     outer_launches, outer_checks = phase_outer(torch, dev, smi, y)
     checks += outer_checks
+    nested_launches, nested_checks = phase_nested(torch, dev, smi,
+                                                  pima_logLt)
+    checks += nested_checks
     # the largest error against the plain version includes the smoothing,
-    # zoo, SQMC, sampler and outer-loop phases' checks on their own inputs
+    # zoo, SQMC, sampler, outer-loop and nested phases' checks on their own
+    # inputs
     path_err = {"systematic_z": "systematic_z_err",
                 "repeat_by_z": "repeat_by_z_err",
                 "normalised_cumsum": "normalised_cumsum_err",
@@ -2966,6 +3399,8 @@ def main():
                                   for run, n in sampler_launches.items()}
         k["launches_outer"] = {run: n[k["name"]]
                                for run, n in outer_launches.items()}
+        k["launches_nested"] = {run: n[k["name"]]
+                                for run, n in nested_launches.items()}
         if k["name"] in path_err:
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 c.get(path_err[k["name"]], 0) for c in checks])

@@ -18,8 +18,10 @@ waste-free or not, and SMC²) with ``variance_mcmc`` and ``datasets``,
 PMCMC (``mcmc``: random-walk Metropolis, PMMH with batched chains,
 conditional SMC and Particle Gibbs) over a batched inner filter
 (``inner_pf``), checkpoint and resume (``SMC.save_state``,
-``SMC.load_state``), and the six kernels of ``ops``.  Entry points run on the current CUDA card unless
-given ``device="cpu"`` or CPU tensors.
+``SMC.load_state``), nested sampling (``nested``: vanilla NS and NS-SMC),
+Bayesian variable selection by SMC on binary spaces (``binary_smc``), and
+the six kernels of ``ops``.  Entry points run on the current CUDA card
+unless given ``device="cpu"`` or CPU tensors.
 """
 
 __version__ = "0.1.0"
@@ -27,6 +29,7 @@ __version__ = "0.1.0"
 _CORE_EXPORTS = ("SMC", "SQMC", "FeynmanKac", "multiSMC")
 
 _SUBMODULES = (
+    "binary_smc",
     "collectors",
     "convert",
     "core",
@@ -37,6 +40,7 @@ _SUBMODULES = (
     "inner_pf",
     "kalman",
     "mcmc",
+    "nested",
     "ops",
     "resampling",
     "rqmc",

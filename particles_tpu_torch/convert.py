@@ -9,8 +9,10 @@ carries a run's stacked history (``np.asarray`` of a JAX ``pf.hist.X``,
 ``.A`` and ``.lw``) into the port's ``ParticleHistory``, and
 ``theta_particles_from_numpy`` a sampler's ``ThetaParticles`` state
 (``np.asarray`` of each θ field, each other per-particle field and each
-``shared`` entry).  Tensors go to
-``device``, by default the current CUDA card (with no card, pass
+``shared`` entry), ``nested_logistic_from_numpy`` a binary sampler's
+proposal (``coeffs``, ``edgy``) and ``nested_state_from_numpy`` a vanilla
+nested-sampling state (``arr``, ``lprior``, ``llik``, ``lZ``).  Tensors go
+to ``device``, by default the current CUDA card (with no card, pass
 ``device="cpu"``).  This module imports no JAX.
 """
 
@@ -19,14 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from particles_tpu_torch import hmm, kalman
+from particles_tpu_torch import binary_smc, hmm, kalman
 from particles_tpu_torch import smc_samplers
 from particles_tpu_torch import smoothing
 from particles_tpu_torch import state_space_models as ssms
 from particles_tpu_torch.utils import resolve_device
 
 __all__ = ["ssm_from_params", "bootstrap_from_numpy", "history_from_numpy",
-           "theta_particles_from_numpy"]
+           "theta_particles_from_numpy", "nested_logistic_from_numpy",
+           "nested_state_from_numpy"]
 
 _MODELS = {cls.__name__: cls for cls in (
     kalman.LinearGauss, kalman.MVLinearGauss,
@@ -102,3 +105,22 @@ def theta_particles_from_numpy(theta, fields=None, shared=None, device=None):
         theta={k: _tensor(v, device) for k, v in theta.items()},
         shared={k: _tensor(v, device) for k, v in (shared or {}).items()},
         **{k: _tensor(v, device) for k, v in (fields or {}).items()})
+
+
+def nested_logistic_from_numpy(coeffs, edgy, device=None):
+    """A ``binary_smc.NestedLogistic`` from numpy arrays: ``coeffs`` (d, d)
+    as float32, ``edgy`` (d,) as bool, on ``device``."""
+    device = resolve_device(device)
+    return binary_smc.NestedLogistic(
+        torch.tensor(np.asarray(coeffs), dtype=torch.float32, device=device),
+        torch.tensor(np.asarray(edgy), dtype=torch.bool, device=device))
+
+
+def nested_state_from_numpy(arr, lprior, llik, lZ, device=None):
+    """A vanilla nested-sampling state as the tensors that
+    ``NestedSampling._chunk`` takes: ``(arr (N, d), lprior (N,), llik (N,),
+    lZ 0-d)``, all float32, on ``device``."""
+    device = resolve_device(device)
+    return tuple(torch.tensor(np.asarray(a), dtype=torch.float32,
+                              device=device)
+                 for a in (arr, lprior, llik, lZ))

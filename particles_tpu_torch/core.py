@@ -501,6 +501,8 @@ class SMC:
             data = getattr(fk, "data", None)
             if self.is_sampler:
                 data = getattr(getattr(fk, "model", None), "data", None)
+            if isinstance(data, (tuple, list)) and data:
+                data = data[0]      # a regression's (x, y)
             if isinstance(data, torch.Tensor):
                 device = data.device
             elif generator is not None:

@@ -1013,17 +1013,27 @@ class VaryingCovNormal(ProbDist):
 
 
 class IndepProd(ProbDist):
-    """Product of independent univariate laws: (N, d) values."""
+    """Product of independent univariate laws: (N, d) values.  A product
+    of bool laws (``binary_smc.Bernoulli``) draws bool, of discrete laws
+    int64, else float32.  A product of one law repeated whose ``logpdf``
+    is elementwise (a law with ``elementwise`` true) takes the (N, d)
+    values in one call."""
 
     def __init__(self, *dists):
         self.dists = list(dists)
         self.dim = len(dists)
-        if all(d.dtype == DiscreteDist.dtype for d in dists):
+        if all(d.dtype == "bool" for d in dists):
+            self.dtype = "bool"
+        elif all(d.dtype == DiscreteDist.dtype for d in dists):
             self.dtype = DiscreteDist.dtype
         else:
             self.dtype = ProbDist.dtype
+        self._one_law = (bool(dists) and all(d is dists[0] for d in dists)
+                         and getattr(dists[0], "elementwise", False))
 
     def logpdf(self, x):
+        if self._one_law:
+            return self.dists[0].logpdf(x).sum(-1)
         return sum(d.logpdf(x[..., i]) for i, d in enumerate(self.dists))
 
     @staticmethod

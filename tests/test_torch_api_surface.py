@@ -1,10 +1,8 @@
 """The PyTorch port's public surface against the JAX package's.
 
 ``REFERENCE_SURFACE`` (``tests/test_api_surface.py``) lists every public
-name of the JAX package by module.  Here each name is either ``PORTED``
-(it must exist in the same module of ``particles_tpu_torch``) or
-``MISSING`` (it must not exist yet), so that each slice of the port moves
-names from the second list to the first.
+name of the JAX package by module.  Every name is ``PORTED``: it must
+exist in the same module of ``particles_tpu_torch``.
 """
 
 import importlib
@@ -15,6 +13,11 @@ from test_api_surface import REFERENCE_SURFACE
 
 PORTED = {
     "particles_tpu": ["SMC", "SQMC", "FeynmanKac", "multiSMC"],
+    "particles_tpu.binary_smc": [
+        "Bernoulli", "NestedLogistic", "BinaryMetropolis",
+        "chol_and_friends", "VariableSelection", "BayesianVS",
+        "BayesianVS_gprior", "all_binary_words",
+    ],
     "particles_tpu.collectors": [
         "Collector", "Moments", "Fixed_lag_smooth", "Online_smooth_naive",
         "Online_smooth_ON2", "Paris",
@@ -50,6 +53,10 @@ PORTED = {
         "MCMC", "VanishCovTracker", "GenericRWHM", "BasicRWHM", "PMMH",
         "CSMC", "GenericGibbs", "ParticleGibbs",
     ],
+    "particles_tpu.nested": [
+        "NestedParticles", "NestedSampling", "Nested_RWmoves",
+        "NestedSamplingSMC", "MeanCovTracker", "unif_minus_one",
+    ],
     "particles_tpu.smc_samplers": REFERENCE_SURFACE[
         "particles_tpu.smc_samplers"],
     "particles_tpu.smoothing": [
@@ -73,19 +80,6 @@ PORTED = {
     ],
 }
 
-# by ROADMAP item: A.10 the outer loops (nested and binary SMC)
-MISSING = {
-    "particles_tpu.binary_smc": [
-        "Bernoulli", "NestedLogistic", "BinaryMetropolis",
-        "chol_and_friends", "VariableSelection", "BayesianVS",
-        "BayesianVS_gprior", "all_binary_words",
-    ],
-    "particles_tpu.nested": [
-        "NestedParticles", "NestedSampling", "Nested_RWmoves",
-        "NestedSamplingSMC", "MeanCovTracker", "unif_minus_one",
-    ],
-}
-
 
 def _port_module(name):
     """The port's module of the JAX module ``name``, or None."""
@@ -98,10 +92,8 @@ def _port_module(name):
 
 @pytest.mark.parametrize("module_name", sorted(REFERENCE_SURFACE))
 def test_lists_split_the_reference_surface(module_name):
-    ported = PORTED.get(module_name, [])
-    missing = MISSING.get(module_name, [])
-    assert not set(ported) & set(missing)
-    assert sorted(ported + missing) == sorted(REFERENCE_SURFACE[module_name])
+    assert sorted(PORTED.get(module_name, [])) == sorted(
+        REFERENCE_SURFACE[module_name])
 
 
 @pytest.mark.parametrize("module_name", sorted(PORTED))
@@ -110,12 +102,3 @@ def test_ported_names_exist(module_name):
     assert mod is not None, module_name
     absent = [n for n in PORTED[module_name] if not hasattr(mod, n)]
     assert not absent, f"{module_name}: {absent}"
-
-
-@pytest.mark.parametrize("module_name", sorted(MISSING))
-def test_missing_names_are_not_there_yet(module_name):
-    """A name that the port gains moves to ``PORTED``."""
-    mod = _port_module(module_name)
-    present = ([] if mod is None else
-               [n for n in MISSING[module_name] if hasattr(mod, n)])
-    assert not present, f"{module_name}: move {present} to PORTED"

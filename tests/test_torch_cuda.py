@@ -1126,3 +1126,123 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
     fk_cpu = ssms.Bootstrap(ssm=ssm, data=y.cpu())
     with pytest.raises(ValueError, match="generator"):
         SMC(fk=fk_cpu, N=2 ** 14, store_history=4).load_state(path)
+
+
+def test_repeat_kernel_serves_bool_rows(dev):
+    """B2 serving a bool (N0, 103) leaf (1-byte elements, 103-byte rows)
+    beside float columns, at binary SMC's waste-free shape (N0 = 30,000,
+    M = 100), exact against its plain version."""
+    rng = np.random.default_rng(14)
+    N0, M = 30000, 100
+    gamma = torch.from_numpy(rng.uniform(size=(N0, 103)) < 0.3).to(dev)
+    cols = [gamma, torch.randn(N0, device=dev), torch.randn(N0, device=dev)]
+    z = torch.from_numpy(np.cumsum(rng.multinomial(
+        M, rng.dirichlet(np.ones(N0)))).astype(np.int32)).to(dev)
+    before = ops.repeat_cols.launches
+    served, _ = ops.repeat_cols(z, M, cols)
+    assert ops.repeat_cols.launches == before + 1
+    plain, _ = ops.repeat_cols_plain(z, M, cols)
+    torch.cuda.synchronize()
+    assert served[0].dtype == torch.bool and served[0].shape == (M, 103)
+    for a, b in zip(served, plain):
+        assert torch.equal(a, b)
+
+
+def test_binary_sampler_on_the_card(dev):
+    """Binary adaptive tempering on the card: numpy data placed there, the
+    bool state served by B2, B1 and B2 the only kernels, done's read the
+    only host sync a step, the inclusion probabilities within 0.1 of
+    enumeration, and chol_and_friends equal to the CPU's within 1e-4."""
+    from particles_tpu_torch import binary_smc as bs
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import smc_samplers as ssp
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(40, 6)).astype(np.float32)
+    y = (X @ np.array([1.5, -1.0, 0, 0, 0.8, 0], np.float32)
+         + 0.5 * rng.normal(size=40)).astype(np.float32)
+    prior = dists.StructDist({"gamma": dists.IID(bs.Bernoulli(0.5), 6)})
+    model = bs.BayesianVS(data=(X, y), prior=prior)
+    assert model.xtx.device.type == "cuda"
+    gammas, lp = model.complete_enum()
+    exact = (gammas.double() * torch.softmax(lp.double(), 0)[:, None]).sum(0)
+    move = ssp.MCMCSequenceWF(mcmc=bs.BinaryMetropolis(), len_chain=20)
+    pf = SMC(fk=ssp.AdaptiveTempering(model=model, len_chain=20, move=move),
+             N=100, seed=1)
+    next(pf)
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+
+    def rest():
+        for _ in pf:
+            pass
+
+    _, syncs = _count_syncs(rest)
+    n_rs = int(pf.summaries.rs_flags.sum())
+    assert syncs == pf.t and n_rs == pf.t - 1
+    for k, f in ops.KERNELS.items():
+        want = n_rs if k in ("systematic_z", "repeat_by_z") else 0
+        assert f.launches - before[k] == want, k
+    assert pf.X.theta["gamma"].dtype == torch.bool
+    W = pf.wgts.W.double()
+    est = (W[:, None] * pf.X.theta["gamma"].double()).sum(0)
+    assert float((est - exact).abs().max()) < 0.1
+    g = pf.X.theta["gamma"]
+    card = bs.chol_and_friends(g, model.xtx, model.xty, model.iv2)
+    cpu = bs.chol_and_friends(g.cpu(), model.xtx.cpu(), model.xty.cpu(),
+                              model.iv2.cpu())
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_nested_sampling_on_the_card(dev):
+    """Vanilla NS: a chunk of contractions with synchronising operations
+    made errors, then a whole run within 1.5 of the exact evidence; NS-SMC:
+    done's read the one host sync a level, B1 and B2 once a level."""
+    import scipy.stats as st
+
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import nested
+    from particles_tpu_torch import smc_samplers as ssp
+
+    class GaussianMean(ssp.StaticModel):
+        def logpyt(self, theta, t):
+            return dists.Normal(loc=theta["mu"]).logpdf(self.data[t])
+
+    T = 20
+    y = np.random.default_rng(1).normal(loc=1.0, size=T).astype(np.float32)
+    exact = st.multivariate_normal(np.zeros(T), np.eye(T) + 1.0).logpdf(y)
+    model = GaussianMean(data=y, prior=dists.StructDist(
+        {"mu": dists.Normal()}))
+    ns = nested.Nested_RWmoves(model=model, N=50, nsteps=3, seed=0)
+    ns.setup()
+    lZ = torch.full((), -torch.inf, device=dev)
+    draws = ns.draws(ns.gen, 25)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lZ, pll, _, _ = ns._chunk(ns.arr, ns.lprior, ns.llik, lZ, 0, 25,
+                                  draws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(lZ) and bool((pll[1:] >= pll[:-1]).all())
+    ns = nested.Nested_RWmoves(model=model, N=200, nsteps=5, seed=1)
+    ns.run()
+    assert abs(ns.lZhats[-1] - exact) < 1.5
+    pf = SMC(fk=nested.NestedSamplingSMC(model=model, len_chain=16,
+                                         ESSrmin=0.3), N=256, seed=2)
+    next(pf)
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in ops.KERNELS.items()}
+
+    def rest():
+        for _ in pf:
+            pass
+
+    _, syncs = _count_syncs(rest)
+    assert syncs == pf.t and float(pf.X.shared["lt"]) == np.inf
+    for k, f in ops.KERNELS.items():
+        want = pf.t - 1 if k in ("systematic_z", "repeat_by_z") else 0
+        assert f.launches - before[k] == want, k
+    assert abs(float(pf.X.shared["log_evid"]) - exact) < 1.0
