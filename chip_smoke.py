@@ -262,11 +262,38 @@ not 0 and no result line is printed.  It exits with an error at once when
     Boston chain step, the proposal's draw and fit, ``chol_and_friends``
     in four equal forms, a Pima NS-SMC level and a vanilla contraction.
 
+19. The particle-sharded filter (``parallel.run_shardmap_smc``), in
+    ranks started by ``parallel.launch.spawn`` after the kernels are
+    built: (a) NCCL, one rank a card present, the main path's model and
+    data (N = 2^20, T = 1000) with each ring (systematic, stratified,
+    multinomial); (b) D_GLOO = 4 gloo ranks sharing card 0 (CUDA tensors,
+    the collectives through the host: a check of the ring, not a speed):
+    the same headline with the systematic ring, the stratified and
+    multinomial rings and ``AuxiliaryPF`` on the first T_GLOO_CUT steps.
+    Each logLt within 0.5 of the float64 Kalman logLt of its data; every
+    rank's logLt and rs_flags equal; per rank and resampling step, B6
+    launched once (twice on multinomial), B2 once a hop and B5 once a hop
+    on multinomial, no other kernel; the collectives a step: two
+    all-reduces (four on ``AuxiliaryPF``), and on a resampling step one
+    all-gather and D - 1 ring shifts.  B2, B5 and B6 held against their
+    plain versions on the rings' own inputs (T_DIST_CHECK steps that all
+    resample, each scheme).  The ring on given global (w, x, u) against
+    the single-device serve on the card: equal on weights k_i 2^-24, and
+    on Dirichlet weights every output served once and z within 1 of B1's.
+    Under gloo, sharded FFBS-MCMC at N = M = 2^17, T = 128 within 5 sd of
+    the Kalman smoother, with T_SMOOTH - 1 backward steps of 3
+    all-gathers and nothing else; then a second, uncounted pass of it
+    with B3 and B4 held against their plain versions on the pass's own
+    inputs (B3 within N 2^-31 + 1e-6, B4 exactly), every rank checking
+    each at least once.  ms a step, the collectives' ms a step
+    (a run with each bracketed by synchronize) and rank 0's device busy
+    share in a profiler window.
+
 Then the kernels line (with each kernel's launches on the smoothing path,
 ``launches_smoothing``, on phase 14's runs, ``launches_zoo``, on phase
 15's, ``launches_sqmc``, on phase 16's, ``launches_samplers``, on phase
-17's, ``launches_outer``, and on phase 18's, ``launches_nested``) and the
-result line.
+17's, ``launches_outer``, on phase 18's, ``launches_nested``, and on phase
+19's, ``launches_distributed``) and the result line.
 """
 
 import json
@@ -425,6 +452,30 @@ VANILLA_CONJ_TOL = 1.5
 VANILLA_PIMA_N = 100
 VANILLA_PIMA_NSTEPS = 8
 VANILLA_PIMA_TOL = 8.0
+# phase 19: the particle-sharded filter (parallel.run_shardmap_smc) on the
+# main path's model and data: NCCL with one rank a card, and D_GLOO gloo
+# ranks sharing card 0 with their collectives through the host (a check of
+# the ring, not a speed: 47.7 ms a step on an NVIDIA H100 80GB HBM3,
+# 700.00 W, the headline 48 s of the phase's 135 s at T_GLOO_CUT = 100);
+# under gloo the stratified and multinomial rings and
+# AuxiliaryPF run the first T_GLOO_CUT steps of the data; sharded
+# FFBS-MCMC at the smoothing shape (N = M = N_SMOOTH, T_SMOOTH); every
+# kernel checked against its plain version on T_DIST_CHECK steps that all
+# resample; a profiler window of DIST_PROFILE_STEPS steps
+D_GLOO = 4
+T_GLOO_CUT = 100
+T_DIST_CHECK = 20
+DIST_PROFILE_STEPS = 20
+DIST_SCHEMES = ("systematic", "stratified", "multinomial")
+# the kernels each ring launches a resampling step, per rank, D ranks: the
+# running max once (the z-forms' z) or twice (the merge ring's uniforms
+# and cumulative weights), the merge rank once a hop, the move once a hop
+DIST_LAUNCHES = {
+    "systematic": lambda D: {"running_max": 1, "repeat_by_z": D},
+    "stratified": lambda D: {"running_max": 1, "repeat_by_z": D},
+    "multinomial": lambda D: {"running_max": 2, "merge_rank_counts": D,
+                              "repeat_by_z": D},
+}
 # the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
 # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -2780,6 +2831,444 @@ def phase_nested(torch, dev, smi, pima_logLt):
     return all_launches, checks
 
 
+def _dist_given_arrays(seed, N):
+    """Phase 19's given global arrays, the same in every process: weights
+    k_i 2^-24 (k_i < 16, so every float sum is exact), Dirichlet(1)
+    weights, particles and the shared uniform."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 16, N)
+    k[-1] += 1
+    return {"exact": (k * 2.0 ** -24).astype(np.float32),
+            "dirichlet": _dirichlet_like(rng, "dirichlet1", N),
+            "x": rng.normal(size=N).astype(np.float32),
+            "u": np.float32(rng.random())}
+
+
+def _same(a, b):
+    """``a`` and ``b`` equal, tensors by dtype and value, through tuples
+    and lists."""
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if a is None or b is None:
+        return a is b
+    return a.dtype == b.dtype and bool(a.equal(b))
+
+
+class _CheckedKernels:
+    """While active, every call of B2 (``repeat_cols``), B5
+    (``merge_rank_counts``) and B6 (``running_max``), which the rings
+    reach through ``ops``, and of B3 (``normalised_cumsum_exact``) and B4
+    (``repeat_cols_su``, also behind ``ancestors_by_su``), which sharded
+    FFBS reaches through ``resampling``, is held against its plain version
+    on the same inputs: exactly, B3 within N 2^-31 + 1e-6 and
+    nondecreasing with its top within 1e-6 of 1, as in ``check_b3``.  The
+    kernel's own launch is counted as always, the plain version launches
+    nothing.  ``calls`` counts the checked calls, ``b3_err`` the largest
+    |cs - plain|."""
+
+    def __init__(self, torch, ops, rs):
+        self.torch, self.ops, self.rs = torch, ops, rs
+        self.calls = {"repeat_by_z": 0, "merge_rank_counts": 0,
+                      "running_max": 0, "normalised_cumsum": 0,
+                      "repeat_by_su": 0}
+        self.b3_err = 0.0
+
+    def __enter__(self):
+        torch, ops, rs = self.torch, self.ops, self.rs
+        self.real = (ops.repeat_cols, ops.merge_rank_counts, ops.running_max)
+        self.real_rs = (rs.normalised_cumsum_exact, rs.repeat_cols_su,
+                        rs.ancestors_by_su)
+        real_b2, real_b5, real_b6 = self.real
+        real_b3, real_b4, _ = self.real_rs
+
+        def repeat_cols(z, M, cols, want_anc=False):
+            out = real_b2(z, M, cols, want_anc)
+            check_b2(torch, "phase 19 B2", [
+                ("ring hop", out, ops.repeat_cols_plain(z, M, cols,
+                                                        want_anc))])
+            self.calls["repeat_by_z"] += 1
+            return out
+
+        def merge_rank_counts(su, cs, M):
+            out = real_b5(su, cs, M)
+            _check(bool((su[1:] >= su[:-1]).all())
+                   and bool((cs[1:] >= cs[:-1]).all()),
+                   "phase 19 B5: its inputs are out of order")
+            _check(torch.equal(out, ops.merge_rank_counts_plain(su, cs, M)),
+                   "phase 19 B5: differs from plain")
+            self.calls["merge_rank_counts"] += 1
+            return out
+
+        def running_max(z):
+            out = real_b6(z)
+            _check(torch.equal(out, ops.running_max_plain(z)),
+                   "phase 19 B6: differs from plain")
+            self.calls["running_max"] += 1
+            return out
+
+        def normalised_cumsum_exact(W):
+            out = real_b3(W)
+            N = W.shape[0]
+            err = float((out - ops.normalised_cumsum_plain(W)).abs().max())
+            tol = N * 2.0 ** -31 + 1e-6
+            _check(out.dtype == torch.float32 and out.shape == (N,)
+                   and bool((out[1:] >= out[:-1]).all())
+                   and abs(float(out[-1]) - 1.0) < 1e-6,
+                   "phase 19 B3: not a nondecreasing CDF ending at 1")
+            _check(err < tol, f"phase 19 B3: |cs - plain| = {err} >= {tol}")
+            self.b3_err = max(self.b3_err, err)
+            self.calls["normalised_cumsum"] += 1
+            return out
+
+        def repeat_cols_su(su, cs, M, cols, want_anc=False):
+            out = real_b4(su, cs, M, cols, want_anc)
+            _check(_same(out, ops.repeat_cols_su_plain(su, cs, M, cols,
+                                                       want_anc)),
+                   "phase 19 B4: differs from plain")
+            self.calls["repeat_by_su"] += 1
+            return out
+
+        def ancestors_by_su(su, cs):
+            return repeat_cols_su(su, cs, su.shape[0], [], want_anc=True)[1]
+
+        ops.repeat_cols, ops.merge_rank_counts, ops.running_max = (
+            repeat_cols, merge_rank_counts, running_max)
+        rs.normalised_cumsum_exact, rs.repeat_cols_su, rs.ancestors_by_su = (
+            normalised_cumsum_exact, repeat_cols_su, ancestors_by_su)
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops.repeat_cols, self.ops.merge_rank_counts,
+         self.ops.running_max) = self.real
+        (self.rs.normalised_cumsum_exact, self.rs.repeat_cols_su,
+         self.rs.ancestors_by_su) = self.real_rs
+
+
+def _timed_comm(torch, comm):
+    """Wrap the collectives of ``comm`` so that each is bracketed by
+    ``torch.cuda.synchronize()`` and its wall time added up; returns (the
+    seconds so far, a function that restores the module)."""
+    spent = [0.0]
+    real = {k: getattr(comm, k) for k in ("pmax", "psum", "all_gather",
+                                           "ring_shift")}
+
+    def timed(f):
+        def g(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return g
+
+    for k, f in real.items():
+        setattr(comm, k, timed(f))
+
+    def restore():
+        for k, f in real.items():
+            setattr(comm, k, f)
+    return spent, restore
+
+
+def _dist_rank(device, job):
+    """Phase 19 on one rank of a ``launch.spawn`` group (NCCL or gloo):
+    the counted runs of ``job["runs"]``, a run with its collectives timed,
+    a profiler window, every kernel against its plain version on the
+    ring's own inputs, the rings on the given arrays and (under gloo)
+    sharded FFBS.  Returns what the parent checks and prints."""
+    import torch
+    import torch.distributed as dist
+
+    from particles_tpu_torch import convert, core, distctx, kalman, ops
+    from particles_tpu_torch import resampling as rs
+    from particles_tpu_torch import state_space_models as ssms
+    from particles_tpu_torch.parallel import comm, distributed
+
+    D, d = dist.get_world_size(), dist.get_rank()
+    y = job["y"]
+    ssm = kalman.LinearGauss(rho=RHO, sigmaX=SIGX, sigmaY=SIGY)
+
+    def fk_of(name, T):
+        return getattr(ssms, name)(ssm=ssm,
+                                   data=torch.from_numpy(y[:T]).to(device))
+
+    out = {"rank": d, "D": D, "backend": str(dist.get_backend()),
+           "device": str(device), "runs": {}}
+    for scheme in DIST_SCHEMES:       # warm: kernels, allocator, channels
+        distributed.run_shardmap_smc(fk_of("Bootstrap", 20), N_MAIN,
+                                     seed=100, resampling=scheme)
+    for tag, name, scheme, T, ESSrmin in job["runs"]:
+        fk = fk_of(name, T)
+        _zero_counts(ops)
+        comm.reset_calls()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = distributed.run_shardmap_smc(fk, N_MAIN, seed=0,
+                                           resampling=scheme,
+                                           ESSrmin=ESSrmin)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["runs"][tag] = {
+            "fk": name, "scheme": scheme, "T": T, "ESSrmin": ESSrmin,
+            "logLt": float(res.logLt),
+            "rs_flags": res.rs_flags.cpu().numpy(),
+            "launches": _read_counts(ops), "calls": dict(comm.calls),
+            "wall_s": wall, "ms_per_step": 1000.0 * wall / T,
+            "finite": bool(torch.isfinite(res.X).all())}
+    # the collectives' share of a step: each bracketed by synchronize
+    spent, restore = _timed_comm(torch, comm)
+    try:
+        T = job["timed_T"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = distributed.run_shardmap_smc(fk_of("Bootstrap", T), N_MAIN,
+                                           seed=5)
+        torch.cuda.synchronize()
+        out["comm_timed"] = {
+            "T": T, "ms_per_step": 1000.0 * (time.perf_counter() - t0) / T,
+            "comm_ms_per_step": 1000.0 * spent[0] / T,
+            "resampling_steps": int(res.rs_flags.sum())}
+    finally:
+        restore()
+    # a profiler window of steps: this rank's device time and busy share
+    from torch.profiler import ProfilerActivity, profile
+
+    pf = core.SMC(fk=fk_of("Bootstrap", T_MAIN), N=N_MAIN // D, seed=6)
+    with distctx.dist_context(None, distctx.rank_generator(6, d, device)):
+        for _ in range(10):
+            next(pf)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DIST_PROFILE_STEPS):
+                next(pf)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key[:60]] = (kernels.get(evt.key[:60], 0.0)
+                                     + evt.self_device_time_total / 1000.0)
+    dev_ms = sum(kernels.values())
+    out["profile"] = {
+        "steps": DIST_PROFILE_STEPS,
+        "resampling_steps": int(sum(
+            pf.summaries.rs_flags[-DIST_PROFILE_STEPS:])),
+        "wall_ms_per_step": 1000.0 * wall / DIST_PROFILE_STEPS,
+        "device_ms_per_step": dev_ms / DIST_PROFILE_STEPS,
+        "busy_share": dev_ms / (1000.0 * wall),
+        "top_kernels_ms": dict(sorted(kernels.items(),
+                                      key=lambda kv: -kv[1])[:6])}
+    # every kernel of the rings against its plain version on the ring's
+    # own inputs: T_DIST_CHECK steps, each resampling (ESSrmin = 1)
+    with _CheckedKernels(torch, ops, rs) as checked:
+        for scheme in DIST_SCHEMES:
+            distributed.run_shardmap_smc(
+                fk_of("Bootstrap", T_DIST_CHECK), N_MAIN, seed=7,
+                resampling=scheme, ESSrmin=1.0)
+        # the rings on the given global arrays
+        g = _dist_given_arrays(job["given_seed"], N_MAIN)
+        x = convert.rank_slice(g["x"], d, D, device)
+        u = torch.tensor(g["u"], device=device)
+        given = {}
+        for kind in ("exact", "dirichlet"):
+            w = convert.rank_slice(g[kind], d, D, device)
+            yv, A = distributed.ring_systematic_resample(
+                x, w, u, N_MAIN, return_ancestors=True)
+            given[kind] = (yv, A)
+    out["checked_calls"] = checked.calls
+    out["given"] = given
+    if job.get("ffbs"):
+        ys = job["y_smooth"]
+        fk = ssms.Bootstrap(ssm=_lg_smooth(kalman),
+                            data=torch.from_numpy(ys).to(device))
+        res = distributed.run_shardmap_smc(fk, N_SMOOTH, seed=21,
+                                           store_history=True)
+        _zero_counts(ops)
+        comm.reset_calls()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = distributed.sharded_backward_mcmc(res.hist, N_SMOOTH,
+                                                  seed=5, nsteps=1)
+        torch.cuda.synchronize()
+        out["ffbs"] = {
+            "paths_sum": paths.double().sum(1), "shape": tuple(paths.shape),
+            "finite": bool(torch.isfinite(paths).all()),
+            "ms_per_backward_step": 1000.0 * (time.perf_counter() - t0)
+            / (T_SMOOTH - 1),
+            "calls": dict(comm.calls), "launches": _read_counts(ops)}
+        # B3 and B4 against their plain versions on this pass's own
+        # inputs, in a second pass that the counts above do not see
+        with _CheckedKernels(torch, ops, rs) as checked:
+            distributed.sharded_backward_mcmc(res.hist, N_SMOOTH, seed=5,
+                                              nsteps=1)
+        out["ffbs"].update(checked_calls=checked.calls,
+                           b3_err=checked.b3_err)
+    return out
+
+
+def phase_distributed(torch, dev, smi, y, kf_logLt):
+    """Phase 19: the particle-sharded filter, NCCL with one rank a card,
+    then D_GLOO gloo ranks on card 0."""
+    from particles_tpu_torch import kalman, ops
+    from particles_tpu_torch.parallel import launch
+
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    job_common = {"y": y, "given_seed": 19, "timed_T": T_GLOO_CUT}
+    nccl_job = dict(job_common, runs=[
+        (f"Bootstrap {s}", "Bootstrap", s, T_MAIN, 0.5)
+        for s in DIST_SCHEMES])
+    # AuxiliaryPF resamples 38 times in the main path's 1000 steps (phase
+    # 14): at ESSrmin = 1 each of the cut's steps runs the ring and the
+    # auxiliary reset
+    gloo_job = dict(job_common, ffbs=True, y_smooth=_simulate_y(T_SMOOTH),
+                    runs=[("Bootstrap systematic", "Bootstrap", "systematic",
+                           T_MAIN, 0.5)]
+                    + [(f"Bootstrap {s}", "Bootstrap", s, T_GLOO_CUT, 0.5)
+                       for s in ("stratified", "multinomial")]
+                    + [("AuxiliaryPF systematic ESSrmin=1", "AuxiliaryPF",
+                        "systematic", T_GLOO_CUT, 1.0)])
+    kf_cut = float(kalman.Kalman(
+        ssm=kalman.LinearGauss(rho=RHO, sigmaX=SIGX, sigmaY=SIGY),
+        data=torch.from_numpy(y[:T_GLOO_CUT].astype(np.float64))).logLt)
+    t0 = time.perf_counter()
+    results = {
+        "nccl": launch.spawn(_dist_rank, cards, args=(nccl_job,),
+                             backend="nccl", device="cuda", timeout=900),
+        "gloo": launch.spawn(_dist_rank, D_GLOO, args=(gloo_job,),
+                             backend="gloo", device="cuda", timeout=900)}
+    spawn_wall = time.perf_counter() - t0
+    out = {"phase": 19, "nvidia_smi": smi, "N": N_MAIN,
+           "T_gloo_cut": T_GLOO_CUT, "tolerance": LOGLT_TOL,
+           "kalman_logLt": kf_logLt, "kalman_logLt_cut": kf_cut,
+           "wall_s": spawn_wall}
+    launches = {}
+    for group, ranks in results.items():
+        D = len(ranks)
+        rec = {"D": D, "backend": ranks[0]["backend"],
+               "devices": [r["device"] for r in ranks], "runs": {}}
+        for tag, run in ranks[0]["runs"].items():
+            exact = kf_logLt if run["T"] == T_MAIN else kf_cut
+            for r in ranks:
+                _check(np.array_equal(r["runs"][tag]["rs_flags"],
+                                      run["rs_flags"])
+                       and r["runs"][tag]["logLt"] == run["logLt"]
+                       and r["runs"][tag]["finite"],
+                       f"phase 19 {group} {tag}: rank {r['rank']} differs")
+            _check(abs(run["logLt"] - exact) < LOGLT_TOL,
+                   f"phase 19 {group} {tag}: logLt {run['logLt']}, Kalman "
+                   f"{exact}")
+            n_rs = int(run["rs_flags"].sum())
+            want = DIST_LAUNCHES[run["scheme"]](D)
+            for r in ranks:
+                for name, n in r["runs"][tag]["launches"].items():
+                    _check(n == want.get(name, 0) * n_rs and n_rs > 0,
+                           f"phase 19 {group} {tag} rank {r['rank']}: "
+                           f"{name} launched {n} times, {n_rs} resampling "
+                           f"steps")
+            T = run["T"]
+            calls = run["calls"]
+            extra = T - 1 if run["fk"] == "AuxiliaryPF" else 0
+            _check(calls == {"pmax": T + extra, "psum": T + extra,
+                             "all_gather": n_rs,
+                             "ring_shift": (D - 1) * n_rs},
+                   f"phase 19 {group} {tag}: collectives {calls}")
+            launches[f"phase 19 {group} {tag}"] = {
+                name: sum(r["runs"][tag]["launches"][name] for r in ranks)
+                for name in ops.KERNELS}
+            rec["runs"][tag] = {
+                "fk": run["fk"], "scheme": run["scheme"], "T": T,
+                "ESSrmin": run["ESSrmin"],
+                "logLt": run["logLt"], "abs_diff": abs(run["logLt"] - exact),
+                "resampling_steps": n_rs,
+                "launches_per_resampling_step_per_rank": {
+                    k: v / n_rs for k, v in run["launches"].items() if v},
+                "collectives_per_step": {k: v / T for k, v in calls.items()},
+                "ms_per_step": [r["runs"][tag]["ms_per_step"]
+                                for r in ranks]}
+        rec["comm_timed"] = [r["comm_timed"] for r in ranks]
+        rec["profile_rank0"] = ranks[0]["profile"]
+        rec["checked_kernel_calls"] = [r["checked_calls"] for r in ranks]
+        for r in ranks:
+            _check(all(r["checked_calls"][k] > 0 for k in (
+                "repeat_by_z", "merge_rank_counts", "running_max")),
+                   f"phase 19 {group}: a kernel of the rings never checked "
+                   f"{r['checked_calls']}")
+        # the ring on the given arrays against the single-device serve
+        g = _dist_given_arrays(19, N_MAIN)
+        x = torch.from_numpy(g["x"]).to(dev)
+        u = torch.tensor(g["u"], device=dev)
+        for kind in ("exact", "dirichlet"):
+            yv = np.concatenate([r["given"][kind][0] for r in ranks])
+            A = np.concatenate([r["given"][kind][1] for r in ranks])
+            _check(A.min() >= 0 and A.max() < N_MAIN
+                   and (np.diff(A) >= 0).all()
+                   and np.array_equal(yv, g["x"][A]),
+                   f"phase 19 {group} given {kind}: an output not served "
+                   "exactly once")
+            z_ring = np.searchsorted(A, np.arange(N_MAIN), side="right")
+            W = torch.from_numpy(g[kind]).to(dev)
+            if kind == "exact":
+                cs = torch.cumsum(W, 0)
+                z = (torch.floor(N_MAIN * cs / cs[-1] - u).to(torch.int32)
+                     + 1).clamp_(0, N_MAIN)
+                z[-1:].fill_(N_MAIN)
+                (ys,), As = ops.repeat_cols(ops.running_max(z), N_MAIN, [x],
+                                            want_anc=True)
+                _check(np.array_equal(yv, ys.cpu().numpy())
+                       and np.array_equal(A, As.cpu().numpy()),
+                       f"phase 19 {group} given exact: the ring differs "
+                       "from the single-device serve")
+                rec["given_exact"] = "equal"
+            else:
+                z1 = ops.systematic_z_fused(W, u, N_MAIN).cpu().numpy()
+                dz = int(np.abs(z_ring - z1).max())
+                _check(dz <= 1, f"phase 19 {group} given dirichlet: |dz| "
+                                f"{dz} against B1")
+                rec["given_dirichlet_max_dz_vs_B1"] = dz
+        if "ffbs" in ranks[0]:
+            tg = kalman_targets(_simulate_y(T_SMOOTH), LAG)
+            mean = sum(r["ffbs"]["paths_sum"] for r in ranks) / N_SMOOTH
+            for r in ranks:
+                _check(r["ffbs"]["finite"] and r["ffbs"]["shape"] == (
+                    T_SMOOTH, N_SMOOTH // D), "phase 19 ffbs: paths")
+                L = 1
+                _check(r["ffbs"]["calls"] == {
+                    "pmax": 0, "psum": 0, "ring_shift": 0,
+                    "all_gather": (L + 1) + (T_SMOOTH - 1) * (L + 2)},
+                    f"phase 19 ffbs: collectives {r['ffbs']['calls']}")
+                checked = r["ffbs"]["checked_calls"]
+                _check(checked["normalised_cumsum"] > 0
+                       and checked["repeat_by_su"] > 0,
+                       f"phase 19 ffbs: B3 or B4 never checked {checked}")
+            rec["sharded_ffbs_mcmc"] = {
+                "N": N_SMOOTH, "M": N_SMOOTH, "T": T_SMOOTH,
+                **_smooth_check("phase 19 sharded ffbs_mcmc", mean,
+                                tg["mean"], np.sqrt(tg["var"]), N_SMOOTH,
+                                "ffbs_mcmc"),
+                "ms_per_backward_step": [r["ffbs"]["ms_per_backward_step"]
+                                         for r in ranks],
+                "collectives_per_backward_step_rank0": {
+                    k: v / (T_SMOOTH - 1)
+                    for k, v in ranks[0]["ffbs"]["calls"].items()},
+                "launches_rank0": {k: v for k, v in
+                                   ranks[0]["ffbs"]["launches"].items() if v},
+                "checked_kernel_calls": [r["ffbs"]["checked_calls"]
+                                         for r in ranks],
+                "normalised_cumsum_err": max(r["ffbs"]["b3_err"]
+                                             for r in ranks)}
+            launches["phase 19 gloo sharded ffbs"] = {
+                name: sum(r["ffbs"]["launches"][name] for r in ranks)
+                for name in ops.KERNELS}
+        out[group] = rec
+    _emit(out)
+    return launches
+
+
 def main():
     import torch
 
@@ -3381,6 +3870,7 @@ def main():
     nested_launches, nested_checks = phase_nested(torch, dev, smi,
                                                   pima_logLt)
     checks += nested_checks
+    dist_launches = phase_distributed(torch, dev, smi, y, kf_logLt)
     # the largest error against the plain version includes the smoothing,
     # zoo, SQMC, sampler, outer-loop and nested phases' checks on their own
     # inputs
@@ -3401,6 +3891,8 @@ def main():
                                for run, n in outer_launches.items()}
         k["launches_nested"] = {run: n[k["name"]]
                                 for run, n in nested_launches.items()}
+        k["launches_distributed"] = {run: n[k["name"]]
+                                     for run, n in dist_launches.items()}
         if k["name"] in path_err:
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 c.get(path_err[k["name"]], 0) for c in checks])

@@ -19,8 +19,11 @@ PMCMC (``mcmc``: random-walk Metropolis, PMMH with batched chains,
 conditional SMC and Particle Gibbs) over a batched inner filter
 (``inner_pf``), checkpoint and resume (``SMC.save_state``,
 ``SMC.load_state``), nested sampling (``nested``: vanilla NS and NS-SMC),
-Bayesian variable selection by SMC on binary spaces (``binary_smc``), and
-the six kernels of ``ops``.  Entry points run on the current CUDA card
+Bayesian variable selection by SMC on binary spaces (``binary_smc``), the
+particle-sharded filter on ``torch.distributed`` (``parallel``:
+``run_shardmap_smc``, the systematic, stratified and multinomial rings,
+sharded FFBS-MCMC; ``distctx``, the ambient context), and the six kernels
+of ``ops``.  Entry points run on the current CUDA card
 unless given ``device="cpu"`` or CPU tensors.
 """
 
@@ -34,6 +37,7 @@ _SUBMODULES = (
     "convert",
     "core",
     "datasets",
+    "distctx",
     "distributions",
     "hilbert",
     "hmm",
@@ -42,6 +46,7 @@ _SUBMODULES = (
     "mcmc",
     "nested",
     "ops",
+    "parallel",
     "resampling",
     "rqmc",
     "smc_samplers",

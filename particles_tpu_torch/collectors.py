@@ -34,12 +34,17 @@ class Collector:
     ``view.A`` or ``view.Xp`` (the ancestor indices are then returned by
     the resampling kernel on resampling steps).  ``host_side`` says that it
     reads the step on the host, in numpy (the waste-free variance
-    collectors of ``smc_samplers``)."""
+    collectors of ``smc_samplers``).  ``dist_safe`` says that it is right
+    under particle sharding (:func:`parallel.run_shardmap_smc`): its
+    reductions go through the dist-aware numerics (``Weights``,
+    ``wmean_and_var``), and it neither walks the genealogy nor keeps
+    per-particle state across steps."""
 
     signature = {}
     stateful = False
     uses_genealogy = True
     host_side = False
+    dist_safe = False
 
     @property
     def summary_name(self):
@@ -61,6 +66,7 @@ class ESSs(Collector):
 
     summary_name = "ESSs"
     uses_genealogy = False
+    dist_safe = True
 
     def collect(self, view):
         return view.wgts.ESS
@@ -71,6 +77,7 @@ class LogLts(Collector):
 
     summary_name = "logLts"
     uses_genealogy = False
+    dist_safe = True
 
     def collect(self, view):
         return view.logLt
@@ -81,6 +88,7 @@ class Rs_flags(Collector):
 
     summary_name = "rs_flags"
     uses_genealogy = False
+    dist_safe = True
 
     def collect(self, view):
         return view.rs_flag
@@ -88,10 +96,13 @@ class Rs_flags(Collector):
 
 class Moments(Collector):
     """Weighted moments of the particles at each t: ``fk.default_moments``
-    (``{'mean', 'var'}``) unless ``mom_func(W, X)`` is given."""
+    (``{'mean', 'var'}``) unless ``mom_func(W, X)`` is given.  Under
+    particle sharding the default moments are global; a ``mom_func`` must
+    reduce through the dist-aware numerics too."""
 
     summary_name = "moments"
     uses_genealogy = False
+    dist_safe = True
     signature = {"mom_func": None}
 
     def collect(self, view):

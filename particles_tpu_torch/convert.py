@@ -11,8 +11,11 @@ carries a run's stacked history (``np.asarray`` of a JAX ``pf.hist.X``,
 (``np.asarray`` of each θ field, each other per-particle field and each
 ``shared`` entry), ``nested_logistic_from_numpy`` a binary sampler's
 proposal (``coeffs``, ``edgy``) and ``nested_state_from_numpy`` a vanilla
-nested-sampling state (``arr``, ``lprior``, ``llik``, ``lZ``).  Tensors go
-to ``device``, by default the current CUDA card (with no card, pass
+nested-sampling state (``arr``, ``lprior``, ``llik``, ``lZ``).
+``rank_slice`` cuts a global array into one rank's slice of the particles,
+and ``join_slices`` joins the ranks' slices back, so that a sharded run
+and a single-device one (or the JAX package) see the same arrays.  Tensors
+go to ``device``, by default the current CUDA card (with no card, pass
 ``device="cpu"``).  This module imports no JAX.
 """
 
@@ -29,7 +32,7 @@ from particles_tpu_torch.utils import resolve_device
 
 __all__ = ["ssm_from_params", "bootstrap_from_numpy", "history_from_numpy",
            "theta_particles_from_numpy", "nested_logistic_from_numpy",
-           "nested_state_from_numpy"]
+           "nested_state_from_numpy", "rank_slice", "join_slices"]
 
 _MODELS = {cls.__name__: cls for cls in (
     kalman.LinearGauss, kalman.MVLinearGauss,
@@ -124,3 +127,24 @@ def nested_state_from_numpy(arr, lprior, llik, lZ, device=None):
     return tuple(torch.tensor(np.asarray(a), dtype=torch.float32,
                               device=device)
                  for a in (arr, lprior, llik, lZ))
+
+
+def rank_slice(a, rank, D, device=None):
+    """Rank ``rank``'s slice, of D, of the global array ``a`` (numpy, split
+    along its first axis, which D must divide), as a tensor on ``device``
+    (floating values as float32)."""
+    a = np.asarray(a)
+    if a.shape[0] % D:
+        raise ValueError(f"rank_slice: {a.shape[0]} rows do not split into "
+                         f"{D} ranks")
+    n = a.shape[0] // D
+    return _tensor(a[rank * n:(rank + 1) * n], resolve_device(device))
+
+
+def join_slices(slices, axis=0):
+    """The global numpy array from the ranks' slices (tensors or arrays, in
+    rank order), joined along ``axis`` (1 for a history's (T, N_local)
+    frames)."""
+    return np.concatenate([s.detach().cpu().numpy()
+                           if isinstance(s, torch.Tensor) else np.asarray(s)
+                           for s in slices], axis=axis)

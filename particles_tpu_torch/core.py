@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from particles_tpu_torch import collectors
+from particles_tpu_torch import distctx
 from particles_tpu_torch import hilbert
 from particles_tpu_torch import ops
 from particles_tpu_torch import resampling as rs
@@ -136,13 +137,15 @@ class StepView(NamedTuple):
 
 class _Carry(NamedTuple):
     """The state one step hands to the next, with the stateful collectors'
-    states."""
+    states and ``wgts``, the :class:`resampling.Weights` of ``lw`` (None:
+    the next step computes them)."""
 
     X: Any
     lw: Any
     logLt: Any
     log_mean_w: Any
     col_states: Any = ()
+    wgts: Any = None
 
 
 def _serve(X, z, N, want_anc):
@@ -172,10 +175,24 @@ def _qmc_reorder(X, extras):
     return X_s, tuple(rest)
 
 
+def _no_dist_sqmc():
+    if distctx.current() is not None:
+        raise NotImplementedError(
+            "SQMC (qmc=True) under particle sharding is ROADMAP A.11b (the "
+            "distributed sorted-Sobol serve and Hilbert sort); run it on one "
+            "device")
+
+
 def _step0(fk, gen, N, ESSrmin, summaries, need_gen, qmc=False):
     """Step t=0.  Under ``qmc`` the particles are ``Gamma0`` of scrambled
-    Sobol points, and the carry holds them in Hilbert order."""
+    Sobol points, and the carry holds them in Hilbert order.
+
+    Under a :mod:`particles_tpu_torch.distctx` context ``N`` is the rank's
+    slice: the model draws from the rank's generator, the ancestors are
+    global and the view's ``N`` is the global count."""
+    ctx = distctx.current()
     if qmc:
+        _no_dist_sqmc()
         du = max(fk.du, 1)
         u = rqmc.sobol(gen, N, du)
         X = fk.Gamma0(u if du > 1 else u[:, 0])
@@ -183,20 +200,29 @@ def _step0(fk, gen, N, ESSrmin, summaries, need_gen, qmc=False):
         # go to the device now, since a copy from the host synchronises
         rqmc.load_directions(du + 1, u.device)
     else:
-        X = fk.M0(gen, N)
+        X = fk.M0(gen if ctx is None else ctx.gen, N)
     lw = fk.logG(0, None, X)
     if qmc:
         X, (lw,) = _qmc_reorder(X, (lw,))
     wgts = rs.Weights(lw)
     logLt = wgts.log_mean
-    A = torch.arange(N, device=lw.device) if need_gen else None
+    A = _identity_ancestors(N, lw.device) if need_gen else None
     view = StepView(fk=fk, t=0, X=X, Xp=X, A=A, wgts=wgts, aux=wgts,
-                    rs_flag=False, logLt=logLt, loglt=logLt, N=N,
-                    ESSrmin=ESSrmin, gen=gen)
+                    rs_flag=False, logLt=logLt, loglt=logLt,
+                    N=N if ctx is None else N * ctx.D, ESSrmin=ESSrmin,
+                    gen=gen if ctx is None else ctx.gen)
     states, outs = ((), ()) if summaries is None else summaries.init_step(view)
     carry = _Carry(X=X, lw=lw, logLt=logLt, log_mean_w=wgts.log_mean,
-                   col_states=states)
+                   col_states=states, wgts=wgts)
     return carry, view, outs
+
+
+def _identity_ancestors(N, device):
+    """``arange(N)``, or under a context the rank's slice of the global
+    identity, ``rank * N + arange(N)``."""
+    ctx = distctx.current()
+    A = torch.arange(N, device=device)
+    return A if ctx is None else A + ctx.rank * N
 
 
 def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
@@ -214,20 +240,42 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     N < ``resampling._SSP_BLOCKED_MIN``.  The log-likelihood increment is
     ``log_mean`` of the new weights after resampling, and otherwise its
     difference from the carried ``log_mean``.
+
+    Under a :mod:`particles_tpu_torch.distctx` context ``N`` is the rank's
+    slice and the same code runs on every rank: the weights' reductions
+    are global (two all-reduces a step, and two more for an auxiliary
+    filter's auxiliary weights), the decision reads the global ESS (the
+    same on every rank, so every rank takes the same branch), a
+    resampling step is the ring of the scheme
+    (:func:`parallel.distributed.ring_resample`; ``systematic``,
+    ``stratified`` or ``multinomial``, others raise), ancestors are
+    global, the model draws from the rank's generator, and ``gen`` (the
+    same on every rank) draws only the resampling's shared uniforms.  An
+    auxiliary filter's reset weights reuse the sums of the auxiliary and
+    plain weights (``log_mean_exp(logeta, lw)`` is ``aux.log_mean -
+    wgts.log_mean``, on one device too), so they add no collective.
     """
+    ctx = distctx.current()
     X, lw = carry.X, carry.lw
-    wgts = rs.Weights(lw)
+    wgts = carry.wgts if carry.wgts is not None else rs.Weights(lw)
     if fk.isAPF:
         logetat = fk.logeta(t - 1, X)
         aux = wgts.add(logetat)
     else:
         logetat, aux = None, wgts
+    Ng = N if ctx is None else N * ctx.D
     pre_view = StepView(fk=fk, t=t, X=X, Xp=X, A=None, wgts=wgts, aux=aux,
-                        rs_flag=None, logLt=carry.logLt, loglt=None, N=N,
+                        rs_flag=None, logLt=carry.logLt, loglt=None, N=Ng,
                         ESSrmin=ESSrmin, gen=gen)
     rs_flag = bool(fk.time_to_resample(pre_view))   # the step's host sync
     if rs_flag:
-        if scheme in rs.rs_counts_funcs:
+        if ctx is not None:
+            from particles_tpu_torch.parallel import distributed
+
+            out = distributed.ring_resample(scheme, gen, X, aux.W, Ng,
+                                            return_ancestors=need_gen)
+            Xp, A = out if need_gen else (out, None)
+        elif scheme in rs.rs_counts_funcs:
             z = rs.resampling_z(scheme, gen, aux.W, M=N)
             Xp, A = _serve(X, z, N, need_gen)
         else:
@@ -236,12 +284,11 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
         if logetat is None:
             lw = torch.zeros_like(lw)
         else:
-            lw = (rs.log_mean_exp(logetat, lw=wgts.lw)
-                  - fk.logeta(t - 1, Xp))
+            lw = aux.log_mean - wgts.log_mean - fk.logeta(t - 1, Xp)
     else:
         Xp = X
-        A = torch.arange(N, device=lw.device) if need_gen else None
-    X_new = fk.M(gen, t, Xp)
+        A = _identity_ancestors(N, lw.device) if need_gen else None
+    X_new = fk.M(gen if ctx is None else ctx.gen, t, Xp)
     lw_new = lw + fk.logG(t, Xp, X_new)
     new_wgts = rs.Weights(lw_new)
     if rs_flag:
@@ -251,11 +298,13 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     logLt = carry.logLt + loglt
     view = StepView(fk=fk, t=t, X=X_new, Xp=Xp, A=A, wgts=new_wgts,
                     aux=aux, rs_flag=rs_flag, logLt=logLt, loglt=loglt,
-                    N=N, ESSrmin=ESSrmin, gen=gen)
+                    N=Ng, ESSrmin=ESSrmin,
+                    gen=gen if ctx is None else ctx.gen)
     states, outs = ((), ()) if summaries is None else summaries.step(
         view, carry.col_states)
     carry = _Carry(X=X_new, lw=lw_new, logLt=logLt,
-                   log_mean_w=new_wgts.log_mean, col_states=states)
+                   log_mean_w=new_wgts.log_mean, col_states=states,
+                   wgts=new_wgts)
     return carry, view, outs
 
 
@@ -270,7 +319,10 @@ def _step_qmc(fk, gen, carry, t, N, ESSrmin, summaries, need_gen,
     the other columns go through ``fk.Gamma``.  One stable sort by the new
     particles' Hilbert key carries lw, the ancestors and Xp: the ancestors
     index the previous Hilbert-ordered generation, so the genealogy stays
-    exact.  No device value is read on the host."""
+    exact.  No device value is read on the host.  Under a
+    :mod:`particles_tpu_torch.distctx` context it raises
+    ``NotImplementedError`` (ROADMAP A.11b)."""
+    _no_dist_sqmc()
     X, lw = carry.X, carry.lw
     wgts = rs.Weights(lw)
     if fk.isAPF:
@@ -701,13 +753,15 @@ class SMCResult:
     the final log-weights ``lw`` (and ``wgts``, ``W`` from them), each
     collector's record as an attribute (``summaries`` is the result
     itself, so ``res.summaries.ESSs`` reads as for an SMC), ``cpu_time``,
-    the run's wall time, and ``hist``, the run's history (None unless
-    ``store_history`` was given)."""
+    the run's wall time, ``hist``, the run's history (None unless
+    ``store_history`` was given), and ``X``, the final particles where the
+    caller keeps them (:func:`parallel.run_shardmap_smc`)."""
 
     def __init__(self, logLt, summaries_dict, lw=None, cpu_time=None,
-                 hist=None):
+                 hist=None, X=None):
         self.logLt = logLt
         self.lw = lw
+        self.X = X
         self.cpu_time = cpu_time
         self.hist = hist
         for name, val in summaries_dict.items():

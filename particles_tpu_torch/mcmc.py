@@ -31,7 +31,8 @@ How this port runs them:
   samplers' ``update_theta`` and ``update_states`` take the run's
   ``torch.Generator`` where the JAX package takes a key.
 
-Single device only: the JAX package's ``mesh`` option is ROADMAP A.11.
+Single device only: the JAX package's ``mesh`` option (chains across
+devices) is ROADMAP A.11b.
 """
 
 from __future__ import annotations
@@ -249,8 +250,11 @@ class GenericRWHM(MCMC):
                  nchains=1, mesh=None, mesh_axis=None):
         if mesh is not None or mesh_axis is not None:
             raise NotImplementedError(
-                "mesh: chains across devices are ROADMAP A.11 (the "
-                "distributed path); the port runs on one device")
+                "mesh: chains across devices are ROADMAP A.11b (the port's "
+                "distributed path shards a filter's particles over "
+                "torch.distributed ranks, parallel.run_shardmap_smc; "
+                "chains x devices is not ported yet); the chains run on "
+                "one device")
         super().__init__(niter=niter, verbose=verbose, seed=seed,
                          generator=generator, device=device)
         self.theta0 = theta0

@@ -1,0 +1,109 @@
+"""The collectives of the particle-sharded engine on ``torch.distributed``.
+
+Counterparts of the JAX package's ``lax.pmax``, ``lax.psum``,
+``lax.all_gather`` and ``lax.ppermute`` over ``perm=[(i, (i + 1) % D)]``,
+as plain functions on tensors over an explicit process group (None: the
+default group).  Every rank of the group calls each function in the same
+order, as with any collective.
+
+Each function counts its calls in :data:`calls`, as the kernels'
+wrappers count their launches (``ops.KERNELS``): ``pmax`` and ``psum``
+are one all-reduce each, ``all_gather`` one all-gather, ``ring_shift`` one
+hop of the ring (one ``batch_isend_irecv`` for every tensor it moves).
+
+Where the operands live: under NCCL they stay on the device.  Under gloo
+an operand on a CUDA device passes through host memory (copied out,
+reduced or sent, copied back), as gloo reduces and sends host buffers.
+The choice is read from ``dist.get_backend(group)``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["calls", "reset_calls", "pmax", "psum", "all_gather",
+           "ring_shift"]
+
+# calls of each collective since the last reset_calls()
+calls = {"pmax": 0, "psum": 0, "all_gather": 0, "ring_shift": 0}
+
+
+def reset_calls():
+    """Set every count of :data:`calls` to 0."""
+    for k in calls:
+        calls[k] = 0
+
+
+def _to_wire(t, group):
+    """``(buffer, device to copy the result back to or None)``: a CUDA
+    tensor goes through the host when the group's backend is gloo."""
+    if t.device.type == "cuda" and str(dist.get_backend(group)) == "gloo":
+        return t.cpu(), t.device
+    return t, None
+
+
+def _from_wire(t, back):
+    return t if back is None else t.to(back)
+
+
+def _peer(group, rank):
+    """The global rank of ``rank`` of ``group`` (what point-to-point
+    operations take)."""
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def pmax(x, group=None):
+    """The maximum of the 0-d tensor ``x`` over the group's ranks (one
+    all-reduce)."""
+    calls["pmax"] += 1
+    buf, back = _to_wire(x.detach().reshape(1).clone(), group)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return _from_wire(buf, back).reshape(())
+
+
+def psum(*xs, group=None):
+    """The sums over the group's ranks of the tensors ``xs`` (one dtype),
+    all in one all-reduce: a tuple of tensors shaped as ``xs``."""
+    calls["psum"] += 1
+    flat = torch.cat([x.detach().reshape(-1) for x in xs])
+    buf, back = _to_wire(flat, group)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    out = _from_wire(buf, back)
+    sizes = [x.numel() for x in xs]
+    return tuple(p.reshape(x.shape)
+                 for p, x in zip(torch.split(out, sizes), xs))
+
+
+def all_gather(x, group=None):
+    """The ranks' ``x`` (one shape on every rank) joined in rank order
+    along the first dimension; a 0-d ``x`` gives a (D,) tensor."""
+    calls["all_gather"] += 1
+    buf, back = _to_wire(x.detach().contiguous(), group)
+    if buf.ndim == 0:
+        buf = buf.reshape(1)
+    parts = [torch.empty_like(buf)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return _from_wire(torch.cat(parts), back)
+
+
+def ring_shift(tensors, group=None):
+    """One hop of the ring: every rank sends each of ``tensors`` to rank
+    ``(rank + 1) % D`` and receives the same-shaped tensors of rank
+    ``(rank - 1) % D``, in one ``batch_isend_irecv``.  Returns the received
+    tensors, in order."""
+    calls["ring_shift"] += 1
+    D = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    nxt = _peer(group, (rank + 1) % D)
+    prv = _peer(group, (rank - 1) % D)
+    wired = [_to_wire(t.contiguous(), group) for t in tensors]
+    recv = [torch.empty_like(buf) for buf, _ in wired]
+    ops = ([dist.P2POp(dist.isend, buf, nxt, group, tag=i)
+            for i, (buf, _) in enumerate(wired)]
+           + [dist.P2POp(dist.irecv, r, prv, group, tag=i)
+              for i, r in enumerate(recv)])
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [_from_wire(r, back) for r, (_, back) in zip(recv, wired)]

@@ -21,6 +21,11 @@ B5 the merge of sorted uniforms with it, B4 the inverse-CDF serve of
 unsorted uniforms (``multinomial_iid``), B2 the move by z.  No scheme
 reads a device value on the host, except the sequential SSP below
 ``_SSP_BLOCKED_MIN``, a host loop as in the JAX package.
+
+Under a :mod:`particles_tpu_torch.distctx` context the reductions of
+:class:`Weights`, ``log_mean_exp``, ``wmean_and_var`` and
+``wmean_and_cov`` run over every rank's slice of the particles
+(:mod:`particles_tpu_torch.parallel.comm`).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import math
 
 import torch
 
+from particles_tpu_torch import distctx
 from particles_tpu_torch.ops import (
     ancestors_by_su,
     ancestors_by_z,
@@ -38,6 +44,7 @@ from particles_tpu_torch.ops import (
     running_max,
     systematic_z_fused,
 )
+from particles_tpu_torch.parallel import comm
 
 __all__ = [
     "Weights",
@@ -105,6 +112,24 @@ def log_sum_exp_ab(la, lb):
     return big + torch.log1p(torch.exp(small - big))
 
 
+def _dist_max(v):
+    """The maximum of ``v``; under a :mod:`particles_tpu_torch.distctx`
+    context, over every rank's slice (one all-reduce)."""
+    ctx = distctx.current()
+    m = v.max()
+    return m if ctx is None else comm.pmax(m, ctx.group)
+
+
+def _dist_sum(*sums):
+    """Values already summed over the local particles; under a context,
+    summed over the ranks too, all in one all-reduce.  One value in, one
+    out; several in, a tuple out."""
+    ctx = distctx.current()
+    if ctx is not None:
+        sums = comm.psum(*sums, group=ctx.group)
+    return sums[0] if len(sums) == 1 else tuple(sums)
+
+
 def log_mean_exp(v, W=None, lw=None):
     """log of the (possibly weighted) average of exp(v).
 
@@ -113,32 +138,40 @@ def log_mean_exp(v, W=None, lw=None):
     underflowed (lw spread > ~88).  The weighted forms are stabilised by
     ``max(v + log w)``, not ``max(v)``: in f32 the max-v particle can carry
     almost no weight, and then every term underflows.
+
+    Under a :mod:`particles_tpu_torch.distctx` context, ``v`` (and ``W`` or
+    ``lw``) are the rank's slices and the average is over every rank's.
     """
+    ctx = distctx.current()
     if W is None and lw is None:
-        m = v.max()
-        return m + torch.log(torch.exp(v - m).sum() / v.shape[0])
+        m = _dist_max(v)
+        n = v.shape[0] * (1 if ctx is None else ctx.D)
+        return m + torch.log(_dist_sum(torch.exp(v - m).sum()) / n)
     s = v + (torch.log(W) if lw is None else lw)
-    m = s.max()
-    out = m + torch.log(torch.exp(s - m).sum())
+    m = _dist_max(s)
+    out = m + torch.log(_dist_sum(torch.exp(s - m).sum()))
     if lw is None:
         return out
-    return out - log_sum_exp(lw)
+    ml = _dist_max(lw)
+    return out - (ml + torch.log(_dist_sum(torch.exp(lw - ml).sum())))
 
 
 def wmean_and_var(W, x):
     """Weighted mean and variance along the particle axis (axis 0):
-    ``{'mean': m, 'var': v}``."""
+    ``{'mean': m, 'var': v}``.  Under a context, ``W`` (the slice of
+    globally normalised weights) and ``x`` are the rank's slices and the
+    moments are global (one all-reduce)."""
     Wc = W.reshape((-1,) + (1,) * (x.ndim - 1))
-    m = (Wc * x).sum(0)
-    m2 = (Wc * x * x).sum(0)
+    m, m2 = _dist_sum((Wc * x).sum(0), (Wc * x * x).sum(0))
     return {"mean": m, "var": m2 - m * m}
 
 
 def wmean_and_cov(W, x):
-    """Weighted mean and covariance of (N, d) particles: ``(m, cov)``."""
-    m = (W[:, None] * x).sum(0)
+    """Weighted mean and covariance of (N, d) particles: ``(m, cov)``
+    (global under a context, as :func:`wmean_and_var`)."""
+    m = _dist_sum((W[:, None] * x).sum(0))
     xc = x - m
-    return m, torch.einsum("n,ni,nj->ij", W, xc, xc)
+    return m, _dist_sum(torch.einsum("n,ni,nj->ij", W, xc, xc))
 
 
 def wmean_and_var_str_array(W, x):
@@ -181,7 +214,10 @@ class Weights:
     """N log-weights and what derives from them: normalised weights ``W``,
     effective sample size ``ESS`` and ``log_mean``, the log of the average
     unnormalised weight.  NaN log-weights count as -inf.  ``Weights()``
-    (no argument) stands for equal weights.
+    (no argument) stands for equal weights.  Under a
+    :mod:`particles_tpu_torch.distctx` context ``lw`` is the rank's slice,
+    ``W`` its slice of the globally normalised weights, and ``ESS`` and
+    ``log_mean`` are global (the same on every rank).
     """
 
     __slots__ = ("lw", "W", "ESS", "log_mean")
@@ -194,12 +230,22 @@ class Weights:
         lw = torch.nan_to_num(lw, nan=-torch.inf, posinf=torch.inf,
                               neginf=-torch.inf)
         self.lw = lw
-        m = lw.max()
+        ctx = distctx.current()
+        m = _dist_max(lw)
         w = torch.exp(lw - m)
-        s = w.sum()
-        self.log_mean = m + torch.log(s / lw.shape[0])
-        self.W = w / s
-        self.ESS = 1.0 / (self.W * self.W).sum()
+        if ctx is None:
+            s = w.sum()
+            self.log_mean = m + torch.log(s / lw.shape[0])
+            self.W = w / s
+            self.ESS = 1.0 / (self.W * self.W).sum()
+        else:
+            # lw is the rank's slice; W is its slice of the globally
+            # normalised weights, ESS and log_mean are global: one max and
+            # one fused pair of sums over the ranks
+            s, s2 = _dist_sum(w.sum(), (w * w).sum())
+            self.log_mean = m + torch.log(s / (lw.shape[0] * ctx.D))
+            self.W = w / s
+            self.ESS = s * s / s2
 
     @property
     def N(self):

@@ -52,8 +52,11 @@ How this port runs them:
   one ``torch.func.vmap`` of ``logpyt`` over ``arange(T)``, in chunks of
   particles that bound its (T, n) intermediate.
 
-Single device only: the JAX package's sharded branches (``distctx``, the
-ring resamplers) are ROADMAP A.11.
+Single device only: the JAX package's sharded samplers, NS-SMC and SMC²
+(``_run_shardmap_sampler``: the waste-free ring resample at M != N, the
+gathered llik of the exponent's bisection, the sharded exchange step) are
+ROADMAP A.11b; the particle-sharded filter they would sit on is
+:func:`particles_tpu_torch.parallel.run_shardmap_smc`.
 """
 
 from __future__ import annotations

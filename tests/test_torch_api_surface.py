@@ -1,15 +1,30 @@
 """The PyTorch port's public surface against the JAX package's.
 
 ``REFERENCE_SURFACE`` (``tests/test_api_surface.py``) lists every public
-name of the JAX package by module.  Every name is ``PORTED``: it must
-exist in the same module of ``particles_tpu_torch``.
+name of the JAX package by module, and ``DIST_SURFACE`` the names of its
+distributed path (``distctx`` and ``parallel``), which that list leaves
+out.  Each name is ``PORTED`` (it must exist in the same module of
+``particles_tpu_torch``) or ``MISSING`` (it must not exist yet, labelled
+by ROADMAP item).  No module of the port imports JAX or the JAX package.
 """
 
+import ast
 import importlib
+from pathlib import Path
 
 import pytest
 
 from test_api_surface import REFERENCE_SURFACE
+
+DIST_SURFACE = {
+    "particles_tpu.distctx": ["DistCtx", "dist_context", "local_context",
+                              "current"],
+    "particles_tpu.parallel": [
+        "make_mesh", "particle_constrain", "run_sharded_smc",
+        "run_sharded_multismc", "ring_systematic_resample",
+        "run_shardmap_smc", "sharded_backward_mcmc"],
+}
+SURFACE = {**REFERENCE_SURFACE, **DIST_SURFACE}
 
 PORTED = {
     "particles_tpu": ["SMC", "SQMC", "FeynmanKac", "multiSMC"],
@@ -22,6 +37,8 @@ PORTED = {
         "Collector", "Moments", "Fixed_lag_smooth", "Online_smooth_naive",
         "Online_smooth_ON2", "Paris",
     ],
+    "particles_tpu.distctx": ["DistCtx", "dist_context", "local_context",
+                              "current"],
     "particles_tpu.datasets": [
         "GBP_vs_USD_9798", "Nutria", "Neuro", "Pima", "Eeg", "Sonar",
         "Boston", "Concrete", "Liver",
@@ -53,6 +70,8 @@ PORTED = {
         "MCMC", "VanishCovTracker", "GenericRWHM", "BasicRWHM", "PMMH",
         "CSMC", "GenericGibbs", "ParticleGibbs",
     ],
+    "particles_tpu.parallel": ["ring_systematic_resample",
+                               "run_shardmap_smc", "sharded_backward_mcmc"],
     "particles_tpu.nested": [
         "NestedParticles", "NestedSampling", "Nested_RWmoves",
         "NestedSamplingSMC", "MeanCovTracker", "unif_minus_one",
@@ -80,6 +99,12 @@ PORTED = {
     ],
 }
 
+# ROADMAP A.11b: the GSPMD entry points (particles_tpu/parallel/sharded.py)
+MISSING = {
+    "particles_tpu.parallel": ["make_mesh", "particle_constrain",
+                               "run_sharded_smc", "run_sharded_multismc"],
+}
+
 
 def _port_module(name):
     """The port's module of the JAX module ``name``, or None."""
@@ -90,10 +115,23 @@ def _port_module(name):
         return None
 
 
-@pytest.mark.parametrize("module_name", sorted(REFERENCE_SURFACE))
+@pytest.mark.parametrize("module_name", sorted(SURFACE))
 def test_lists_split_the_reference_surface(module_name):
-    assert sorted(PORTED.get(module_name, [])) == sorted(
-        REFERENCE_SURFACE[module_name])
+    ported = PORTED.get(module_name, [])
+    missing = MISSING.get(module_name, [])
+    assert not set(ported) & set(missing)
+    assert sorted(ported + missing) == sorted(SURFACE[module_name])
+
+
+@pytest.mark.parametrize("module_name", sorted(DIST_SURFACE))
+def test_dist_surface_is_the_jax_packages(module_name):
+    """``DIST_SURFACE`` holds every public function and class of the JAX
+    package's distributed modules."""
+    mod = importlib.import_module(module_name)
+    names = getattr(mod, "__all__", None) or [
+        n for n, v in vars(mod).items()
+        if not n.startswith("_") and callable(v)]
+    assert sorted(names) == sorted(DIST_SURFACE[module_name])
 
 
 @pytest.mark.parametrize("module_name", sorted(PORTED))
@@ -102,3 +140,34 @@ def test_ported_names_exist(module_name):
     assert mod is not None, module_name
     absent = [n for n in PORTED[module_name] if not hasattr(mod, n)]
     assert not absent, f"{module_name}: {absent}"
+
+
+@pytest.mark.parametrize("module_name", sorted(MISSING))
+def test_missing_names_are_not_there_yet(module_name):
+    """A name that the port gains moves to ``PORTED``."""
+    mod = _port_module(module_name)
+    present = ([] if mod is None else
+               [n for n in MISSING[module_name] if hasattr(mod, n)])
+    assert not present, f"{module_name}: move {present} to PORTED"
+
+
+_ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(_ROOT)) for p in [
+        *(_ROOT / "particles_tpu_torch").rglob("*.py"),
+        _ROOT / "chip_smoke.py"]))
+def test_no_port_module_imports_jax(path):
+    """The port, and the script that drives it on the card, import
+    neither JAX nor the JAX package."""
+    tree = ast.parse((_ROOT / path).read_text())
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.append(node.module)
+    bad = [m for m in imported
+           if m.split(".")[0] in ("jax", "jaxlib", "particles_tpu")]
+    assert not bad, bad

@@ -1246,3 +1246,78 @@ def test_nested_sampling_on_the_card(dev):
         want = pf.t - 1 if k in ("systematic_z", "repeat_by_z") else 0
         assert f.launches - before[k] == want, k
     assert abs(float(pf.X.shared["log_evid"]) - exact) < 1.0
+
+
+def _card_ring_inputs():
+    rng = np.random.default_rng(5)
+    N = 2 ** 16
+    k = rng.integers(0, 256, N)
+    k[-1] += 1
+    # observations of LinearGauss(rho=0.9, sigmaX=1, sigmaY=0.2)
+    x = np.empty(50)
+    x[0] = rng.normal() / np.sqrt(1 - 0.81)
+    for t in range(1, 50):
+        x[t] = 0.9 * x[t - 1] + rng.normal()
+    y = (x + 0.2 * rng.normal(size=50)).astype(np.float32)
+    return {"x": rng.normal(size=N).astype(np.float32),
+            "w": (k * 2.0 ** -24).astype(np.float32),   # exact sums
+            "su": np.sort(rng.random(N)).astype(np.float32),
+            "u": np.float32(0.37), "y": y, "N_run": 2 ** 16}
+
+
+def _card_ring_checks(inp, ranks, D):
+    """The joined rings against the single-device serves of the same
+    arrays (exact: every sum is exact), the runs against Kalman, and
+    each ring kernel launched on every rank."""
+    from particles_tpu_torch import convert, kalman, ops
+
+    x, w = torch.from_numpy(inp["x"]), torch.from_numpy(inp["w"])
+    N = x.shape[0]
+    cs = torch.cumsum(w, 0)
+    z = (torch.floor(N * cs / cs[-1] - torch.tensor(inp["u"])).to(
+        torch.int32) + 1).clamp_(0, N)
+    z[-1:].fill_(N)
+    (want,), A = ops.repeat_cols_plain(ops.running_max(z), N, [x],
+                                       want_anc=True)
+    got = convert.join_slices([r["systematic"][0] for r in ranks])
+    got_A = convert.join_slices([r["systematic"][1] for r in ranks])
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(got_A, A.numpy())
+    A_merge = torch.searchsorted(cs / cs[-1], torch.from_numpy(inp["su"]))
+    np.testing.assert_array_equal(
+        convert.join_slices([r["merge"][1] for r in ranks]),
+        A_merge.clamp(max=N - 1).numpy())
+    kf = kalman.Kalman(ssm=kalman.LinearGauss(rho=0.9, sigmaX=1.0,
+                                              sigmaY=0.2),
+                       data=torch.from_numpy(inp["y"]).double())
+    for scheme, run in ranks[0]["runs"].items():
+        assert abs(run["logLt"] - float(kf.logLt)) < 0.5, scheme
+        for r in ranks:
+            la = r["runs"][scheme]["launches"]
+            assert la["repeat_by_z"] == D * run["rs"] > 0, (scheme, la)
+            assert la["running_max"] > 0, (scheme, la)
+            assert (la["merge_rank_counts"] > 0) == (
+                scheme == "multinomial"), (scheme, la)
+
+
+def test_rings_on_gloo_ranks_sharing_the_card(dev):
+    """Two gloo ranks on card 0 (the collectives through the host): the
+    rings equal the single-device serves, B2, B5 and B6 launch."""
+    import torch_dist_ranks as ranks
+    from particles_tpu_torch.parallel import launch
+
+    inp = _card_ring_inputs()
+    out = launch.spawn(ranks.card_rings, 2, args=(inp,), backend="gloo",
+                       device="cuda", timeout=300)
+    _card_ring_checks(inp, out, 2)
+
+
+def test_rings_on_nccl_one_rank_a_card(dev):
+    import torch_dist_ranks as ranks
+    from particles_tpu_torch.parallel import launch
+
+    inp = _card_ring_inputs()
+    D = torch.cuda.device_count()
+    out = launch.spawn(ranks.card_rings, D, args=(inp,), backend="nccl",
+                       device="cuda", timeout=300)
+    _card_ring_checks(inp, out, D)

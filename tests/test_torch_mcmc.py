@@ -225,7 +225,7 @@ def test_multichain_conjugate_posterior_and_diagnostics():
 
 def test_mesh_raises_naming_the_roadmap_item():
     model, _ = _gm_model(4, 10)
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match=r"A\.11b"):
         mcmc.BasicRWHM(model=model, mesh=object())
 
 
