@@ -75,9 +75,12 @@ not 0 and no result line is printed.  It exits with an error at once when
    port's default puts it on the card), after a warm-up at T=20.  Each
    logLt within 0.5 of Kalman; each kernel launched once per resampling
    step in its scheme's combination (systematic B1+B2, stratified B3+B2,
-   multinomial and residual B3+B5+B2, ssp B2, killing B3+B4), B6 never
-   (every CDF the port builds is monotone by construction).  Then
-   ``idiotic`` at T=50: it runs and launches no kernel.
+   multinomial and residual B6+B3+B5+B2, ssp B2, killing B3+B4; every
+   CDF the port builds is monotone by construction, and B6 sorts the
+   spacings' float cumsum, ROADMAP C.13).  The multinomial and residual
+   runs again, every B5 call held against its plain version on the run's
+   own uniforms, exact.  Then ``idiotic`` at T=50: it runs and launches no
+   kernel.
 10. Kernel times at N = 2^20 (CUDA events, median of 25 batches of 10
     calls) beside the plain version's, the one PyTorch call that computes
     the same function where there is one, and the bound; each kernel's and
@@ -215,8 +218,9 @@ not 0 and no result line is printed.  It exits with an error at once when
     (the deployment's 3000 cut to fit the phase): every chain's
     acceptance rate in (0.05, 0.9), the chain loop under
     ``torch.cuda.set_sync_debug_mode("error")``.  PMMH on the fixed-sigma
-    LinearGauss (T = 25, Nx = 200, 8 chains, 2000 iterations) against the
-    Kalman grid posterior: pooled mean within 0.15, sd ratio in (0.3, 3).
+    LinearGauss (T = 25, Nx = 200, 8 chains, PMMH_ORACLE_NITER iterations)
+    against the Kalman grid posterior: pooled mean within 0.15, sd ratio
+    in (0.3, 3).
     CSMC on LinearGauss (T = 100, N = 2^16): particle 0 equal to xstar
     and ancestor 0 at every t, exactly; B3, B5 and B2 launched once a
     step and no other kernel; the steps under the "error" sync guard; B3
@@ -268,11 +272,12 @@ not 0 and no result line is printed.  It exits with an error at once when
     data (N = 2^20, T = 1000) with each ring (systematic, stratified,
     multinomial); (b) D_GLOO = 4 gloo ranks sharing card 0 (CUDA tensors,
     the collectives through the host: a check of the ring, not a speed):
-    the same headline with the systematic ring, the stratified and
-    multinomial rings and ``AuxiliaryPF`` on the first T_GLOO_CUT steps.
+    the systematic, stratified and multinomial rings and ``AuxiliaryPF``
+    on the first T_GLOO_CUT steps of the headline's data.
     Each logLt within 0.5 of the float64 Kalman logLt of its data; every
     rank's logLt and rs_flags equal; per rank and resampling step, B6
-    launched once (twice on multinomial), B2 once a hop and B5 once a hop
+    launched once (three times on multinomial: the spacings, the ring's
+    uniforms and cumulative weights), B2 once a hop and B5 once a hop
     on multinomial, no other kernel; the collectives a step: two
     all-reduces (four on ``AuxiliaryPF``), and on a resampling step one
     all-gather and D - 1 ring shifts.  B2, B5 and B6 held against their
@@ -288,12 +293,33 @@ not 0 and no result line is printed.  It exits with an error at once when
     each at least once.  ms a step, the collectives' ms a step
     (a run with each bracketed by synchronize) and rank 0's device busy
     share in a profiler window.
+20. The rest of the distributed path, in ranks started as in phase 19.
+    (a) NCCL, one rank a card: distributed SQMC (``run_shardmap_smc(...,
+    qmc=True)``) on the headline, uncut, within 0.5 of Kalman, the last
+    particles sorted (the 1-d Hilbert order); (b) the waste-free samplers
+    on Pima at M = 2^14, P = 64 (N0 = 2^20): adaptive tempering within
+    3.0 of path sampling and 0.3 of the Newton MAP, NS-SMC within 6.0 of
+    phase 16's tempering.  D_GLOO gloo ranks on card 0: SQMC on the first
+    T_GLOO_SQMC steps with its history (global ancestors from every
+    rank's slice); adaptive tempering on the conjugate mean (N0 = 2^16)
+    within 0.5 of its exact evidence; SMC² on GBP/USD at Ntheta = 1000,
+    init_Nx = 100 on the first T_GLOO_SMC2 observations; (c) PMMH's 8
+    chains over the ranks (a 1-d ``make_mesh``), PMMH_DIST_NITER
+    iterations, pooled within 0.15 of the Kalman grid's posterior mean;
+    (d) ``run_sharded_smc`` with ``ssp`` on a (1, 4) mesh and
+    ``run_sharded_multismc`` on a (2, 2) mesh, on the first T_GLOO_MESH
+    steps, within 0.5 of Kalman.  Every rank's logLt, flags, chains and
+    exchanges equal; per rank exactly the launches of SQMC_DIST_LAUNCHES
+    a step, a sampler's ring B6 once and B2 D ceil(leaves / 8) times a
+    resampling step, the gathered ``ssp`` B2 D times; every B2, B5 and B6
+    call of the gloo runs, and of a second pass of the NCCL runs (SQMC on
+    T_DIST_CHECK steps), held against its plain version.
 
 Then the kernels line (with each kernel's launches on the smoothing path,
 ``launches_smoothing``, on phase 14's runs, ``launches_zoo``, on phase
 15's, ``launches_sqmc``, on phase 16's, ``launches_samplers``, on phase
-17's, ``launches_outer``, on phase 18's, ``launches_nested``, and on phase
-19's, ``launches_distributed``) and the result line.
+17's, ``launches_outer``, on phase 18's, ``launches_nested``, and on
+phases 19 and 20, ``launches_distributed``) and the result line.
 """
 
 import json
@@ -314,8 +340,10 @@ SCHEMES = ["systematic", "stratified", "multinomial", "residual", "ssp",
 SCHEME_KERNELS = {
     "systematic": {"systematic_z", "repeat_by_z"},
     "stratified": {"normalised_cumsum", "repeat_by_z"},
-    "multinomial": {"normalised_cumsum", "merge_rank_counts", "repeat_by_z"},
-    "residual": {"normalised_cumsum", "merge_rank_counts", "repeat_by_z"},
+    "multinomial": {"running_max", "normalised_cumsum", "merge_rank_counts",
+                    "repeat_by_z"},
+    "residual": {"running_max", "normalised_cumsum", "merge_rank_counts",
+                 "repeat_by_z"},
     "ssp": {"repeat_by_z"},
     "killing": {"normalised_cumsum", "repeat_by_su"},
 }
@@ -391,8 +419,10 @@ PIMA_LEN_CHAIN = 30
 PIMA_PS_TOL = 3.0
 PIMA_MAP_TOL = 0.3
 # phase 17: the outer loops.  SMC² and PMMH at the JAX package's deployment
-# shapes (bench.py); PMMH's 3000 iterations are cut to PMMH_NITER to keep
-# the phase near two minutes
+# shapes (bench.py); PMMH's 3000 iterations are cut to PMMH_NITER, and the
+# Kalman-grid check to PMMH_ORACLE_NITER, to keep the script inside its
+# time limit (PMMH on StochVol took 63 s of 250 iterations, the grid check
+# 60 s of 2000, on an NVIDIA H100 80GB HBM3, 700.00 W)
 SMC2_NTHETA = 1000
 SMC2_NX = 100
 SMC2_LEN_CHAIN = 4
@@ -406,11 +436,11 @@ SMC2_MEAN_TOL = 0.25
 PMMH_T = 200
 PMMH_NX = 100
 PMMH_CHAINS = 8
-PMMH_NITER = 250
+PMMH_NITER = 100
 PMMH_ORACLE_T = 25
 PMMH_ORACLE_NX = 200
-PMMH_ORACLE_NITER = 2000
-PMMH_ORACLE_BURN = 500
+PMMH_ORACLE_NITER = 1000
+PMMH_ORACLE_BURN = 250
 PMMH_MEAN_TOL = 0.15
 CSMC_T = 100
 CSMC_N = 2 ** 16
@@ -455,10 +485,9 @@ VANILLA_PIMA_TOL = 8.0
 # phase 19: the particle-sharded filter (parallel.run_shardmap_smc) on the
 # main path's model and data: NCCL with one rank a card, and D_GLOO gloo
 # ranks sharing card 0 with their collectives through the host (a check of
-# the ring, not a speed: 47.7 ms a step on an NVIDIA H100 80GB HBM3,
-# 700.00 W, the headline 48 s of the phase's 135 s at T_GLOO_CUT = 100);
-# under gloo the stratified and multinomial rings and
-# AuxiliaryPF run the first T_GLOO_CUT steps of the data; sharded
+# the ring, not a speed: 37-69 ms a step on an NVIDIA H100 80GB HBM3,
+# 700.00 W, so the gloo runs take the first T_GLOO_CUT steps of the
+# data; the headline's 1000 took 69 s of the phase's 188 s); sharded
 # FFBS-MCMC at the smoothing shape (N = M = N_SMOOTH, T_SMOOTH); every
 # kernel checked against its plain version on T_DIST_CHECK steps that all
 # resample; a profiler window of DIST_PROFILE_STEPS steps
@@ -468,14 +497,44 @@ T_DIST_CHECK = 20
 DIST_PROFILE_STEPS = 20
 DIST_SCHEMES = ("systematic", "stratified", "multinomial")
 # the kernels each ring launches a resampling step, per rank, D ranks: the
-# running max once (the z-forms' z) or twice (the merge ring's uniforms
-# and cumulative weights), the merge rank once a hop, the move once a hop
+# running max once (the z-forms' z) or three times (the block's spacings,
+# then the merge ring's uniforms and cumulative weights), the merge rank
+# once a hop, the move once a hop
 DIST_LAUNCHES = {
     "systematic": lambda D: {"running_max": 1, "repeat_by_z": D},
     "stratified": lambda D: {"running_max": 1, "repeat_by_z": D},
-    "multinomial": lambda D: {"running_max": 2, "merge_rank_counts": D,
+    "multinomial": lambda D: {"running_max": 3, "merge_rank_counts": D,
                               "repeat_by_z": D},
 }
+# phase 20: the rest of the distributed path, NCCL with one rank a card and
+# D_GLOO gloo ranks on card 0 as in phase 19.  NCCL: distributed SQMC on
+# the headline (N_MAIN, T_MAIN) and the waste-free samplers on Pima at
+# phase 16's and phase 18's shapes (N_SAMPLER starting points, P_SAMPLER
+# states a chain), uncut.  Gloo, through the host: SQMC on the first
+# T_GLOO_SQMC steps with its history; adaptive tempering on phase 16's
+# conjugate mean at N0 = N_SAMPLER_SPREAD; SMC² at phase 17's GBP/USD shape
+# on the first T_GLOO_SMC2 observations of its 750; PMMH's PMMH_CHAINS
+# chains over the ranks against phase 17's Kalman grid, cut to
+# PMMH_DIST_NITER iterations of phase 17's PMMH_ORACLE_NITER; and the mesh
+# entry points on the first T_GLOO_MESH steps: run_sharded_smc with ssp on
+# a (1, D_GLOO) mesh and run_sharded_multismc (MULTI_RUNS runs) on a (2, 2)
+# mesh.  Every B2, B5 and B6 launch of the gloo runs, and of a second pass
+# of the NCCL runs (SQMC cut to T_DIST_CHECK steps), is held against its
+# plain version.
+T_GLOO_SQMC = 50
+T_GLOO_SMC2 = 250
+PMMH_DIST_NITER = 500
+PMMH_DIST_BURN = 100
+T_GLOO_MESH = 50
+MULTI_RUNS = 4
+# the kernels a step launches a rank: distributed SQMC at every t >= 1
+# (the merge ring: B6 on the uniforms and on the cumulative weights, B5
+# and B2 a hop); a sampler's systematic ring at each resampling step (B6
+# once, B2 a hop for every MAX_PAYLOADS leaves); the gathered ssp z-form
+# (B2 a hop)
+SQMC_DIST_LAUNCHES = lambda D: {"running_max": 2,  # noqa: E731
+                                "merge_rank_counts": D, "repeat_by_z": D}
+
 # the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
 # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -2362,7 +2421,7 @@ def phase_outer(torch, dev, smi, y_main):
     launches = _read_counts(ops)
     all_launches["phase 17 CSMC"] = launches
     for name, n in launches.items():
-        want = (CSMC_T - 1 if name in ("normalised_cumsum",
+        want = (CSMC_T - 1 if name in ("running_max", "normalised_cumsum",
                                        "merge_rank_counts", "repeat_by_z")
                 else 0)
         _check(n == want, f"phase 17 CSMC: {name} launched {n} times")
@@ -2831,6 +2890,47 @@ def phase_nested(torch, dev, smi, pima_logLt):
     return all_launches, checks
 
 
+def check_b5_on_scheme_uniforms(torch, fk):
+    """ROADMAP C.13: phase 9's multinomial and residual runs again (the
+    same run seeds, so the same uniforms), every B5 call held against its
+    plain version on its own inputs; with the calls whose uniforms or
+    cumulative weights came out of order (a float cumsum on the card can
+    leave neighbours an ulp apart)."""
+    from particles_tpu_torch import ops
+    from particles_tpu_torch import resampling as rs
+    from particles_tpu_torch.core import multiSMC
+
+    real = rs._merge_rank_counts
+    rec = {}
+    now = {}
+
+    def checked(su, cs, M):
+        out = real(su, cs, M)
+        r = rec[now["scheme"]]
+        r["calls"] += 1
+        r["su_pairs_out_of_order"] += int((su[1:] < su[:-1]).sum())
+        r["cs_pairs_out_of_order"] += int((cs[1:] < cs[:-1]).sum())
+        r["differ_from_plain"] += int(not torch.equal(
+            out, ops.merge_rank_counts_plain(su, cs, M)))
+        return out
+
+    rs._merge_rank_counts = checked
+    try:
+        for scheme in ("multinomial", "residual"):
+            now["scheme"] = scheme
+            rec[scheme] = {"calls": 0, "su_pairs_out_of_order": 0,
+                           "cs_pairs_out_of_order": 0,
+                           "differ_from_plain": 0}
+            multiSMC(fk=fk, N=N_MAIN, resampling=scheme, nruns=1)
+    finally:
+        rs._merge_rank_counts = real
+    for scheme, r in rec.items():
+        _check(r["calls"] > 0 and r["differ_from_plain"] == 0,
+               f"phase 9 {scheme}: B5 against its plain version on the "
+               f"run's own uniforms: {r}")
+    return rec
+
+
 def _dist_given_arrays(seed, N):
     """Phase 19's given global arrays, the same in every process: weights
     k_i 2^-24 (k_i < 16, so every float sum is exact), Dirichlet(1)
@@ -2858,17 +2958,18 @@ def _same(a, b):
 class _CheckedKernels:
     """While active, every call of B2 (``repeat_cols``), B5
     (``merge_rank_counts``) and B6 (``running_max``), which the rings
-    reach through ``ops``, and of B3 (``normalised_cumsum_exact``) and B4
-    (``repeat_cols_su``, also behind ``ancestors_by_su``), which sharded
-    FFBS reaches through ``resampling``, is held against its plain version
+    reach through ``ops`` and the sorted spacings through ``resampling``,
+    and of B3 (``normalised_cumsum_exact``) and B4 (``repeat_cols_su``,
+    also behind ``ancestors_by_su``), which sharded FFBS reaches through
+    ``resampling``, is held against its plain version
     on the same inputs: exactly, B3 within N 2^-31 + 1e-6 and
     nondecreasing with its top within 1e-6 of 1, as in ``check_b3``.  The
     kernel's own launch is counted as always, the plain version launches
     nothing.  ``calls`` counts the checked calls, ``b3_err`` the largest
     |cs - plain|."""
 
-    def __init__(self, torch, ops, rs):
-        self.torch, self.ops, self.rs = torch, ops, rs
+    def __init__(self, torch, ops, rs, tag="phase 19"):
+        self.torch, self.ops, self.rs, self.tag = torch, ops, rs, tag
         self.calls = {"repeat_by_z": 0, "merge_rank_counts": 0,
                       "running_max": 0, "normalised_cumsum": 0,
                       "repeat_by_su": 0}
@@ -2878,13 +2979,15 @@ class _CheckedKernels:
         torch, ops, rs = self.torch, self.ops, self.rs
         self.real = (ops.repeat_cols, ops.merge_rank_counts, ops.running_max)
         self.real_rs = (rs.normalised_cumsum_exact, rs.repeat_cols_su,
-                        rs.ancestors_by_su)
+                        rs.ancestors_by_su, rs.merge_rank_counts,
+                        rs.running_max)
         real_b2, real_b5, real_b6 = self.real
-        real_b3, real_b4, _ = self.real_rs
+        real_b3, real_b4 = self.real_rs[:2]
+        tag = self.tag
 
         def repeat_cols(z, M, cols, want_anc=False):
             out = real_b2(z, M, cols, want_anc)
-            check_b2(torch, "phase 19 B2", [
+            check_b2(torch, f"{tag} B2", [
                 ("ring hop", out, ops.repeat_cols_plain(z, M, cols,
                                                         want_anc))])
             self.calls["repeat_by_z"] += 1
@@ -2894,16 +2997,16 @@ class _CheckedKernels:
             out = real_b5(su, cs, M)
             _check(bool((su[1:] >= su[:-1]).all())
                    and bool((cs[1:] >= cs[:-1]).all()),
-                   "phase 19 B5: its inputs are out of order")
+                   f"{tag} B5: its inputs are out of order")
             _check(torch.equal(out, ops.merge_rank_counts_plain(su, cs, M)),
-                   "phase 19 B5: differs from plain")
+                   f"{tag} B5: differs from plain")
             self.calls["merge_rank_counts"] += 1
             return out
 
         def running_max(z):
             out = real_b6(z)
             _check(torch.equal(out, ops.running_max_plain(z)),
-                   "phase 19 B6: differs from plain")
+                   f"{tag} B6: differs from plain")
             self.calls["running_max"] += 1
             return out
 
@@ -2915,8 +3018,8 @@ class _CheckedKernels:
             _check(out.dtype == torch.float32 and out.shape == (N,)
                    and bool((out[1:] >= out[:-1]).all())
                    and abs(float(out[-1]) - 1.0) < 1e-6,
-                   "phase 19 B3: not a nondecreasing CDF ending at 1")
-            _check(err < tol, f"phase 19 B3: |cs - plain| = {err} >= {tol}")
+                   f"{tag} B3: not a nondecreasing CDF ending at 1")
+            _check(err < tol, f"{tag} B3: |cs - plain| = {err} >= {tol}")
             self.b3_err = max(self.b3_err, err)
             self.calls["normalised_cumsum"] += 1
             return out
@@ -2925,7 +3028,7 @@ class _CheckedKernels:
             out = real_b4(su, cs, M, cols, want_anc)
             _check(_same(out, ops.repeat_cols_su_plain(su, cs, M, cols,
                                                        want_anc)),
-                   "phase 19 B4: differs from plain")
+                   f"{tag} B4: differs from plain")
             self.calls["repeat_by_su"] += 1
             return out
 
@@ -2934,15 +3037,18 @@ class _CheckedKernels:
 
         ops.repeat_cols, ops.merge_rank_counts, ops.running_max = (
             repeat_cols, merge_rank_counts, running_max)
-        rs.normalised_cumsum_exact, rs.repeat_cols_su, rs.ancestors_by_su = (
-            normalised_cumsum_exact, repeat_cols_su, ancestors_by_su)
+        (rs.normalised_cumsum_exact, rs.repeat_cols_su, rs.ancestors_by_su,
+         rs.merge_rank_counts, rs.running_max) = (
+            normalised_cumsum_exact, repeat_cols_su, ancestors_by_su,
+            merge_rank_counts, running_max)
         return self
 
     def __exit__(self, *exc):
         (self.ops.repeat_cols, self.ops.merge_rank_counts,
          self.ops.running_max) = self.real
         (self.rs.normalised_cumsum_exact, self.rs.repeat_cols_su,
-         self.rs.ancestors_by_su) = self.real_rs
+         self.rs.ancestors_by_su, self.rs.merge_rank_counts,
+         self.rs.running_max) = self.real_rs
 
 
 def _timed_comm(torch, comm):
@@ -2950,8 +3056,7 @@ def _timed_comm(torch, comm):
     ``torch.cuda.synchronize()`` and its wall time added up; returns (the
     seconds so far, a function that restores the module)."""
     spent = [0.0]
-    real = {k: getattr(comm, k) for k in ("pmax", "psum", "all_gather",
-                                           "ring_shift")}
+    real = {k: getattr(comm, k) for k in comm.calls}
 
     def timed(f):
         def g(*a, **kw):
@@ -3107,27 +3212,34 @@ def _dist_rank(device, job):
                                               nsteps=1)
         out["ffbs"].update(checked_calls=checked.calls,
                            b3_err=checked.b3_err)
+    if job.get("more"):     # phase 20, in the same ranks
+        out["more"] = _dist20_rank(device, job["more"])
     return out
 
 
-def phase_distributed(torch, dev, smi, y, kf_logLt):
+def phase_distributed(torch, dev, smi, y, kf_logLt, more=None):
     """Phase 19: the particle-sharded filter, NCCL with one rank a card,
-    then D_GLOO gloo ranks on card 0."""
+    then D_GLOO gloo ranks on card 0.  ``more``: phase 20's jobs by
+    backend (:func:`dist_more_jobs`), which the same ranks run after
+    phase 19's work.  Returns the launches and phase 20's rank records
+    by backend."""
     from particles_tpu_torch import kalman, ops
     from particles_tpu_torch.parallel import launch
 
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
+    more = more or {}
     job_common = {"y": y, "given_seed": 19, "timed_T": T_GLOO_CUT}
-    nccl_job = dict(job_common, runs=[
+    nccl_job = dict(job_common, more=more.get("nccl"), runs=[
         (f"Bootstrap {s}", "Bootstrap", s, T_MAIN, 0.5)
         for s in DIST_SCHEMES])
     # AuxiliaryPF resamples 38 times in the main path's 1000 steps (phase
     # 14): at ESSrmin = 1 each of the cut's steps runs the ring and the
     # auxiliary reset
     gloo_job = dict(job_common, ffbs=True, y_smooth=_simulate_y(T_SMOOTH),
+                    more=more.get("gloo"),
                     runs=[("Bootstrap systematic", "Bootstrap", "systematic",
-                           T_MAIN, 0.5)]
+                           T_GLOO_CUT, 0.5)]
                     + [(f"Bootstrap {s}", "Bootstrap", s, T_GLOO_CUT, 0.5)
                        for s in ("stratified", "multinomial")]
                     + [("AuxiliaryPF systematic ESSrmin=1", "AuxiliaryPF",
@@ -3141,7 +3253,10 @@ def phase_distributed(torch, dev, smi, y, kf_logLt):
                              backend="nccl", device="cuda", timeout=900),
         "gloo": launch.spawn(_dist_rank, D_GLOO, args=(gloo_job,),
                              backend="gloo", device="cuda", timeout=900)}
-    spawn_wall = time.perf_counter() - t0
+    more_out = {g: [r["more"] for r in ranks] for g, ranks in results.items()
+                if ranks[0].get("more")}
+    spawn_wall = time.perf_counter() - t0 - sum(
+        max(r["wall_s"] for r in ranks) for ranks in more_out.values())
     out = {"phase": 19, "nvidia_smi": smi, "N": N_MAIN,
            "T_gloo_cut": T_GLOO_CUT, "tolerance": LOGLT_TOL,
            "kalman_logLt": kf_logLt, "kalman_logLt_cut": kf_cut,
@@ -3175,7 +3290,7 @@ def phase_distributed(torch, dev, smi, y, kf_logLt):
             extra = T - 1 if run["fk"] == "AuxiliaryPF" else 0
             _check(calls == {"pmax": T + extra, "psum": T + extra,
                              "all_gather": n_rs,
-                             "ring_shift": (D - 1) * n_rs},
+                             "ring_shift": (D - 1) * n_rs, "exchange": 0},
                    f"phase 19 {group} {tag}: collectives {calls}")
             launches[f"phase 19 {group} {tag}"] = {
                 name: sum(r["runs"][tag]["launches"][name] for r in ranks)
@@ -3238,7 +3353,7 @@ def phase_distributed(torch, dev, smi, y, kf_logLt):
                     T_SMOOTH, N_SMOOTH // D), "phase 19 ffbs: paths")
                 L = 1
                 _check(r["ffbs"]["calls"] == {
-                    "pmax": 0, "psum": 0, "ring_shift": 0,
+                    "pmax": 0, "psum": 0, "ring_shift": 0, "exchange": 0,
                     "all_gather": (L + 1) + (T_SMOOTH - 1) * (L + 2)},
                     f"phase 19 ffbs: collectives {r['ffbs']['calls']}")
                 checked = r["ffbs"]["checked_calls"]
@@ -3265,6 +3380,336 @@ def phase_distributed(torch, dev, smi, y, kf_logLt):
                 name: sum(r["ffbs"]["launches"][name] for r in ranks)
                 for name in ops.KERNELS}
         out[group] = rec
+    _emit(out)
+    return launches, more_out
+
+
+def _global_mean(torch, x, lw, group=None):
+    """The weighted mean of a rank's ``x`` under the rank's log-weights
+    ``lw``, over every rank of ``group`` (float64)."""
+    from particles_tpu_torch.parallel import comm
+
+    lw = lw.double()
+    w = torch.exp(lw - comm.pmax(lw.max(), group))
+    num, den = comm.psum((w * x.double()).sum(), w.sum(), group=group)
+    return float(num / den)
+
+
+def _dist20_rank(device, job):
+    """Phase 20 on one rank of a ``launch.spawn`` group (NCCL or gloo):
+    each run of ``job["runs"]`` counted (launches, collectives, wall), then,
+    for NCCL, the runs again with every B2, B5 and B6 call held against its
+    plain version (gloo runs checked the first time).  Returns what the
+    parent checks and prints."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from particles_tpu_torch import kalman, mcmc, nested, ops
+    from particles_tpu_torch import distributions as dists
+    from particles_tpu_torch import resampling as rs
+    from particles_tpu_torch import smc_samplers as ssp
+    from particles_tpu_torch import state_space_models as ssms
+    from particles_tpu_torch.parallel import comm, distributed, sharded
+
+    D, d = dist.get_world_size(), dist.get_rank()
+    y = job["y"]
+    ssm = kalman.LinearGauss(rho=RHO, sigmaX=SIGX, sigmaY=SIGY)
+
+    def lg(T):
+        return ssms.Bootstrap(ssm=ssm, data=torch.from_numpy(y[:T]).to(device))
+
+    pima, _ = logistic_model(torch, device, "Pima")
+    GaussianMean, _ = _sampler_classes()
+    yc, _, _, _ = conjugate_targets()
+    conj = GaussianMean(data=torch.from_numpy(yc).to(device),
+                        prior=dists.StructDist({"mu": dists.Normal()}))
+    LGfixed = _lg_fixed()
+    rho_prior = dists.StructDist({"rho": dists.Uniform(a=-0.99, b=0.99)})
+
+    def sampler(fk, N, seed):
+        res = distributed.run_shardmap_smc(fk, N, seed=seed)
+        rec = {"logLt": float(res.logLt), "rs_flags": res.rs_flags,
+               "leaves": len(res.X._leaves()[0]), "N0_rank": res.X.N,
+               "shared": {k: float(v) for k, v in res.X.shared.items()
+                          if torch.as_tensor(v).numel() == 1}}
+        rec["post_mean"] = {k: _global_mean(torch, v, res.lw)
+                            for k, v in res.X.theta.items()
+                            if v.ndim == 1}
+        return rec
+
+    def sqmc(T, hist):
+        res = distributed.run_shardmap_smc(lg(T), N_MAIN, seed=0, qmc=True,
+                                           store_history=hist)
+        rec = {"logLt": float(res.logLt), "rs_flags": res.rs_flags,
+               "finite": bool(torch.isfinite(res.X).all()),
+               "sorted": bool((res.X[1:] >= res.X[:-1]).all())}
+        if hist:
+            A = res.hist.A
+            rec.update(A_min=int(A.min()), A_max=int(A.max()),
+                       origin_ranks=int(torch.unique(
+                           A[1:] // (N_MAIN // D)).numel()))
+        return rec
+
+    def smc2(T):
+        fk = ssp.SMC2(ssm_cls=ssms.StochVolLeverage, prior=dists.StructDist({
+            "mu": dists.Normal(loc=-1.0, scale=2.0),
+            "rho": dists.Uniform(a=-0.99, b=0.99),
+            "sigma": dists.Gamma(a=2.0, b=4.0),
+            "phi": dists.Uniform(a=-0.99, b=0.99)}),
+            data=torch.from_numpy(job["y_gbp"][:T]).to(device),
+            init_Nx=SMC2_NX, len_chain=SMC2_LEN_CHAIN,
+            ar_to_increase_Nx=SMC2_AR)
+        res = distributed.run_shardmap_smc(fk, SMC2_NTHETA, seed=17)
+        return {"logLt": float(res.logLt), "rs_flags": res.rs_flags,
+                "leaves": len(res.X._leaves()[0]),
+                "exchanges": list(fk.exchanges),
+                "xs": tuple(res.X.xs.shape),
+                "acc_rate": float(res.X.shared["acc_rate"]),
+                "post_mean": {k: _global_mean(torch, v, res.lw)
+                              for k, v in res.X.theta.items()}}
+
+    def pmmh():
+        mesh = sharded.make_mesh(axis_names=("chains",),
+                                 device_type=device.type)
+        m = mcmc.PMMH(ssm_cls=LGfixed, prior=rho_prior,
+                      data=torch.from_numpy(job["y_pm"]).to(device),
+                      Nx=PMMH_ORACLE_NX, niter=PMMH_DIST_NITER,
+                      nchains=PMMH_CHAINS, seed=172, mesh=mesh,
+                      mesh_axis="chains")
+        m.run()
+        return {"rho": m.chain.theta["rho"], "nacc": m.nacc}
+
+    def ssp_mesh():
+        mesh = sharded.make_mesh(D, ("runs", "particles"), (1, D),
+                                 device_type=device.type)
+        res, _ = sharded.run_sharded_smc(lg(T_GLOO_MESH), N_MAIN, seed=3,
+                                         mesh=mesh, resampling="ssp")
+        return {"logLt": float(res.logLt), "rs_flags": res.rs_flags}
+
+    def multi_mesh():
+        mesh = sharded.make_mesh(D, ("runs", "particles"), (2, D // 2),
+                                 device_type=device.type)
+        logLts, lws = sharded.run_sharded_multismc(
+            lg(T_GLOO_MESH), N_MAIN, MULTI_RUNS, seed=4, mesh=mesh)
+        return {"logLts": logLts, "lws_shape": tuple(lws.shape),
+                "finite": bool(torch.isfinite(lws).any(1).all())}
+
+    runs = {
+        "sqmc": lambda: sqmc(job["T_sqmc"], job["sqmc_hist"]),
+        "tempering Pima": lambda: sampler(
+            ssp.AdaptiveTempering(
+                model=pima, len_chain=P_SAMPLER), N_SAMPLER, 181),
+        "NS-SMC Pima": lambda: sampler(
+            nested.NestedSamplingSMC(
+                model=pima, len_chain=P_SAMPLER, ESSrmin=NS_ESSRMIN),
+            N_SAMPLER, 186),
+        "tempering conjugate": lambda: sampler(
+            ssp.AdaptiveTempering(
+                model=conj, len_chain=P_SAMPLER),
+            N_SAMPLER_SPREAD // P_SAMPLER, 182),
+        "SMC2 GBP/USD": lambda: smc2(T_GLOO_SMC2),
+        "PMMH chains": pmmh,
+        "run_sharded_smc ssp": ssp_mesh,
+        "run_sharded_multismc": multi_mesh,
+    }
+    t_start = time.perf_counter()
+    out = {"rank": d, "D": D, "backend": str(dist.get_backend()),
+           "device": str(device), "runs": {}}
+    distributed.run_shardmap_smc(lg(20), N_MAIN, seed=100, qmc=True)  # warm
+    for tag in job["runs"]:
+        check = (_CheckedKernels(torch, ops, rs, f"phase 20 {tag}")
+                 if job["checked"] else contextlib.nullcontext())
+        _zero_counts(ops)
+        comm.reset_calls()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with check:
+            rec = runs[tag]()
+        torch.cuda.synchronize()
+        rec.update(wall_s=time.perf_counter() - t0,
+                   launches=_read_counts(ops), calls=dict(comm.calls),
+                   checked_calls=getattr(check, "calls", None))
+        out["runs"][tag] = rec
+    if not job["checked"]:      # the second pass, every kernel checked
+        out["checked"] = {}
+        again = {"sqmc": lambda: sqmc(T_DIST_CHECK, False),
+                 **{k: runs[k] for k in job["runs"] if k != "sqmc"}}
+        for tag in job["runs"]:
+            with _CheckedKernels(torch, ops, rs,
+                                 f"phase 20 {tag} checked") as checked:
+                again[tag]()
+            out["checked"][tag] = checked.calls
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def dist_more_jobs(y):
+    """Phase 20's rank jobs, by backend: they run in phase 19's ranks,
+    after phase 19's own work (one launch of each backend for both)."""
+    from particles_tpu_torch import datasets
+
+    common = {"y": y, "y_pm": _simulate_lg(0.8, 1.0, 0.5, PMMH_ORACLE_T, 3)[1],
+              "y_gbp": datasets.GBP_vs_USD_9798().data.astype(np.float32)}
+    return {"nccl": dict(common, checked=False, T_sqmc=T_MAIN,
+                         sqmc_hist=False,
+                         runs=["sqmc", "tempering Pima", "NS-SMC Pima"]),
+            "gloo": dict(common, checked=True, T_sqmc=T_GLOO_SQMC,
+                         sqmc_hist=True,
+                         runs=["sqmc", "tempering conjugate", "SMC2 GBP/USD",
+                               "PMMH chains", "run_sharded_smc ssp",
+                               "run_sharded_multismc"])}
+
+
+def phase_dist_more(torch, dev, smi, y, pima_logLt, results):
+    """Phase 20: distributed SQMC, the sharded samplers, NS-SMC and SMC²,
+    PMMH's chains across ranks and the mesh entry points, run by phase
+    19's ranks (``results``: by backend, each rank's ``_dist20_rank``
+    record): NCCL with one rank a card, D_GLOO gloo ranks on card 0."""
+    from particles_tpu_torch import kalman, ops
+
+    _, pm_mean, pm_sd = lg_oracle(
+        torch, _simulate_lg(0.8, 1.0, 0.5, PMMH_ORACLE_T, 3)[1], 100)
+
+    def kalman_of(T):
+        return float(kalman.Kalman(
+            ssm=kalman.LinearGauss(rho=RHO, sigmaX=SIGX, sigmaY=SIGY),
+            data=torch.from_numpy(y[:T].astype(np.float64))).logLt)
+
+    _, conj_exact, _, _ = conjugate_targets()
+    b_map = newton_map(logistic_model(torch, dev, "Pima")[1])
+    out = {"phase": 20, "nvidia_smi": smi, "N": N_MAIN,
+           "wall_s": sum(max(r["wall_s"] for r in ranks)
+                         for ranks in results.values()),
+           "tolerance": LOGLT_TOL}
+    launches = {}
+    for group, ranks in results.items():
+        D = len(ranks)
+        rec_g = {"D": D, "backend": ranks[0]["backend"],
+                 "devices": [r["device"] for r in ranks], "runs": {}}
+        for tag, run in ranks[0]["runs"].items():
+            where = f"phase 20 {group} {tag}"
+            for r in ranks:     # what every rank must hold alike
+                other = r["runs"][tag]
+                for k in ("logLt", "rs_flags", "exchanges", "logLts", "rho",
+                          "nacc"):
+                    if k in run:
+                        _check(np.array_equal(np.asarray(other[k]),
+                                              np.asarray(run[k])),
+                               f"{where}: rank {r['rank']} differs in {k}")
+            rec = {k: v for k, v in run.items()
+                   if k not in ("rs_flags", "rho", "launches", "calls",
+                                "checked_calls")}
+            rec["wall_s"] = [r["runs"][tag]["wall_s"] for r in ranks]
+            n_rs = (int(np.asarray(run["rs_flags"]).sum())
+                    if "rs_flags" in run else 0)
+            rec["resampling_steps"] = n_rs
+            want = {}
+            if tag == "sqmc":
+                T = len(run["rs_flags"])
+                exact = kalman_of(T)
+                rec.update(T=T, kalman_logLt=exact,
+                           abs_diff=abs(run["logLt"] - exact),
+                           ms_per_step=[1000.0 * w / T
+                                        for w in rec["wall_s"]])
+                _check(rec["abs_diff"] < LOGLT_TOL and run["finite"]
+                       and run["sorted"] and n_rs == T - 1,
+                       f"{where}: {rec}")
+                if "A_min" in run:
+                    _check(run["A_min"] >= 0 and run["A_max"] < N_MAIN
+                           and run["origin_ranks"] == D,
+                           f"{where}: the ancestors are not global: {rec}")
+                want = {k: v * n_rs for k, v in
+                        SQMC_DIST_LAUNCHES(D).items()}
+            elif tag in ("tempering Pima", "tempering conjugate",
+                         "NS-SMC Pima", "SMC2 GBP/USD"):
+                per = -(-run["leaves"] // ops.MAX_PAYLOADS)
+                want = {"running_max": n_rs, "repeat_by_z": D * per * n_rs}
+                if tag == "tempering Pima":
+                    post = np.array([run["post_mean"][f"b{j}"]
+                                     for j in range(len(b_map))])
+                    ps = run["shared"]["path_sampling"]
+                    rec.update(abs_diff_path_sampling=abs(run["logLt"] - ps),
+                               max_abs_diff_newton_map=float(
+                                   np.abs(post - b_map).max()))
+                    _check(rec["abs_diff_path_sampling"] < PIMA_PS_TOL
+                           and rec["max_abs_diff_newton_map"] < PIMA_MAP_TOL
+                           and run["shared"]["exponent"] == 1.0
+                           and run["N0_rank"] == N_SAMPLER * P_SAMPLER // D,
+                           f"{where}: {rec}")
+                elif tag == "NS-SMC Pima":
+                    ev = run["shared"]["log_evid"]
+                    rec.update(phase_16_tempering_logLt=pima_logLt,
+                               abs_diff=abs(ev - pima_logLt))
+                    _check(np.isfinite(ev) and rec["abs_diff"] < NS_PIMA_TOL
+                           and np.isinf(run["shared"]["lt"]),
+                           f"{where}: {rec}")
+                elif tag == "tempering conjugate":
+                    rec.update(exact=conj_exact,
+                               abs_diff=abs(run["logLt"] - conj_exact))
+                    _check(rec["abs_diff"] < LOGLT_TOL, f"{where}: {rec}")
+                else:
+                    _check(np.isfinite(run["logLt"])
+                           and 0.0 < run["acc_rate"] < 1.0
+                           and run["xs"][0] == SMC2_NTHETA // D
+                           and all(np.isfinite(v) for v in
+                                   run["post_mean"].values()),
+                           f"{where}: {rec}")
+            elif tag == "PMMH chains":
+                pooled = np.asarray(run["rho"])[PMMH_DIST_BURN:].ravel()
+                rec.update(niter=PMMH_DIST_NITER, burn=PMMH_DIST_BURN,
+                           nchains=PMMH_CHAINS, pooled_mean=float(
+                               pooled.mean()), exact_mean=pm_mean,
+                           sd_ratio=float(pooled.std() / pm_sd),
+                           nacc=np.asarray(run["nacc"]).tolist())
+                _check(np.asarray(run["rho"]).shape
+                       == (PMMH_DIST_NITER, PMMH_CHAINS)
+                       and abs(rec["pooled_mean"] - pm_mean) < PMMH_MEAN_TOL
+                       and 0.3 < rec["sd_ratio"] < 3.0, f"{where}: {rec}")
+            elif tag == "run_sharded_smc ssp":
+                exact = kalman_of(T_GLOO_MESH)
+                rec.update(T=T_GLOO_MESH, kalman_logLt=exact,
+                           abs_diff=abs(run["logLt"] - exact))
+                _check(rec["abs_diff"] < LOGLT_TOL and n_rs > 0,
+                       f"{where}: {rec}")
+                want = {"repeat_by_z": D * n_rs}
+            elif tag == "run_sharded_multismc":
+                exact = kalman_of(T_GLOO_MESH)
+                lls = np.asarray(run["logLts"])
+                rec.update(T=T_GLOO_MESH, kalman_logLt=exact,
+                           logLts=lls.tolist(),
+                           max_abs_diff=float(np.abs(lls - exact).max()))
+                _check(lls.shape == (MULTI_RUNS,) and run["finite"]
+                       and run["lws_shape"] == (MULTI_RUNS // 2,
+                                                N_MAIN // (D // 2))
+                       and rec["max_abs_diff"] < LOGLT_TOL,
+                       f"{where}: {rec}")
+            if tag != "run_sharded_multismc":
+                for r in ranks:
+                    got = r["runs"][tag]["launches"]
+                    _check(all(got[k] == want.get(k, 0) for k in got),
+                           f"{where} rank {r['rank']}: launches {got}, "
+                           f"expected {want}")
+            launches[f"phase 20 {group} {tag}"] = {
+                name: sum(r["runs"][tag]["launches"][name] for r in ranks)
+                for name in ops.KERNELS}
+            rec["launches_rank0"] = {k: v for k, v in
+                                     run["launches"].items() if v}
+            rec["collectives_rank0"] = run["calls"]
+            checked = [r["checked"][tag] if "checked" in r
+                       else r["runs"][tag]["checked_calls"] for r in ranks]
+            rec["checked_kernel_calls"] = checked
+            uses = {k for k, v in run["launches"].items() if v}
+            names = {"repeat_by_z": "repeat_by_z",
+                     "merge_rank_counts": "merge_rank_counts",
+                     "running_max": "running_max"}
+            for c in checked:
+                _check(all(c[names[k]] > 0 for k in uses if k in names),
+                       f"{where}: a kernel never checked {c}")
+            rec_g["runs"][tag] = rec
+        out[group] = rec_g
     _emit(out)
     return launches
 
@@ -3692,6 +4137,7 @@ def main():
             "resampling_steps": n_rs, "launches": launched,
             "warm_wall_s": res.cpu_time,
             "ms_per_step": 1000.0 * res.cpu_time / T_MAIN}
+    b5_uniforms = check_b5_on_scheme_uniforms(torch, fk_np)
     zero_counts()
     idiot = multiSMC(fk=ssms.Bootstrap(ssm=ssm, data=y[:T_IDIOTIC]),
                      N=N_MAIN, resampling="idiotic", nruns=1)[0]["output"]
@@ -3700,6 +4146,7 @@ def main():
     _emit({"phase": 9, "N": N_MAIN, "T": T_MAIN, "kalman_logLt": kf_logLt,
            "tolerance": LOGLT_TOL, "nvidia_smi": smi, "schemes": schemes_out,
            "launches": multi_launches,
+           "b5_on_the_runs_uniforms": b5_uniforms,
            "idiotic": {"T": T_IDIOTIC, "logLt": float(idiot.logLt),
                        "resampling_steps": int(idiot.rs_flags.sum()),
                        "warm_wall_s": idiot.cpu_time}})
@@ -3870,7 +4317,10 @@ def main():
     nested_launches, nested_checks = phase_nested(torch, dev, smi,
                                                   pima_logLt)
     checks += nested_checks
-    dist_launches = phase_distributed(torch, dev, smi, y, kf_logLt)
+    dist_launches, more = phase_distributed(torch, dev, smi, y, kf_logLt,
+                                            dist_more_jobs(y))
+    dist_launches.update(phase_dist_more(torch, dev, smi, y, pima_logLt,
+                                         more))
     # the largest error against the plain version includes the smoothing,
     # zoo, SQMC, sampler, outer-loop and nested phases' checks on their own
     # inputs

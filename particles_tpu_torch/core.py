@@ -175,12 +175,29 @@ def _qmc_reorder(X, extras):
     return X_s, tuple(rest)
 
 
-def _no_dist_sqmc():
-    if distctx.current() is not None:
+def _dist_qmc_count(N, ctx):
+    """The global particle count of SQMC under the context ``ctx``: the
+    sharded sorted Sobol set is in closed form only at a power of two, so
+    another count raises ``NotImplementedError``, as in the JAX
+    package."""
+    Ng = N * ctx.D
+    if Ng & (Ng - 1):
         raise NotImplementedError(
-            "SQMC (qmc=True) under particle sharding is ROADMAP A.11b (the "
-            "distributed sorted-Sobol serve and Hilbert sort); run it on one "
-            "device")
+            "SQMC under particle sharding needs the global particle count "
+            f"to be a power of two (got N={Ng}): the sharded sorted Sobol "
+            "set is in closed form only at 2^m")
+    return Ng
+
+
+def _reorder(X, extras):
+    """:func:`_qmc_reorder`, or under a context the global Hilbert order
+    (:func:`parallel.dqmc.dist_qmc_reorder`)."""
+    ctx = distctx.current()
+    if ctx is None:
+        return _qmc_reorder(X, extras)
+    from particles_tpu_torch.parallel import dqmc
+
+    return dqmc.dist_qmc_reorder(X, extras, ctx.group)
 
 
 def _step0(fk, gen, N, ESSrmin, summaries, need_gen, qmc=False):
@@ -189,12 +206,18 @@ def _step0(fk, gen, N, ESSrmin, summaries, need_gen, qmc=False):
 
     Under a :mod:`particles_tpu_torch.distctx` context ``N`` is the rank's
     slice: the model draws from the rank's generator, the ancestors are
-    global and the view's ``N`` is the global count."""
+    global and the view's ``N`` is the global count.  Under ``qmc`` the
+    rank takes its rows of one global Sobol set drawn from ``gen`` (the
+    replicated generator), and the particles go to the global Hilbert
+    order."""
     ctx = distctx.current()
     if qmc:
-        _no_dist_sqmc()
         du = max(fk.du, 1)
-        u = rqmc.sobol(gen, N, du)
+        if ctx is None:
+            u = rqmc.sobol(gen, N, du)
+        else:
+            u = rqmc.sobol(gen, _dist_qmc_count(N, ctx), du,
+                           start=ctx.rank * N, count=N)
         X = fk.Gamma0(u if du > 1 else u[:, 0])
         # every later step draws du + 1 columns: their direction numbers
         # go to the device now, since a copy from the host synchronises
@@ -203,7 +226,7 @@ def _step0(fk, gen, N, ESSrmin, summaries, need_gen, qmc=False):
         X = fk.M0(gen if ctx is None else ctx.gen, N)
     lw = fk.logG(0, None, X)
     if qmc:
-        X, (lw,) = _qmc_reorder(X, (lw,))
+        X, (lw,) = _reorder(X, (lw,))
     wgts = rs.Weights(lw)
     logLt = wgts.log_mean
     A = _identity_ancestors(N, lw.device) if need_gen else None
@@ -319,10 +342,20 @@ def _step_qmc(fk, gen, carry, t, N, ESSrmin, summaries, need_gen,
     the other columns go through ``fk.Gamma``.  One stable sort by the new
     particles' Hilbert key carries lw, the ancestors and Xp: the ancestors
     index the previous Hilbert-ordered generation, so the genealogy stays
-    exact.  No device value is read on the host.  Under a
-    :mod:`particles_tpu_torch.distctx` context it raises
-    ``NotImplementedError`` (ROADMAP A.11b)."""
-    _no_dist_sqmc()
+    exact.  No device value is read on the host.
+
+    Under a :mod:`particles_tpu_torch.distctx` context (distributed SQMC)
+    the same recursion runs on every rank's slice: the global count must
+    be a power of two; the rank takes its rows ``[rank N, (rank + 1) N)``
+    of one globally sorted Sobol set drawn from ``gen`` (replicated);
+    the merge ring serves them
+    (:func:`parallel.dqmc.ring_merge_resample`: B6, then B5 and B2 a hop),
+    with global ancestors; an auxiliary filter's reset weights are
+    recomputed from the served particles; and the sort is the global
+    Hilbert sort (:func:`parallel.dqmc.dist_qmc_reorder`).  The model's
+    draws (none: ``Gamma`` is deterministic) would come from the rank's
+    generator."""
+    ctx = distctx.current()
     X, lw = carry.X, carry.lw
     wgts = rs.Weights(lw)
     if fk.isAPF:
@@ -331,7 +364,10 @@ def _step_qmc(fk, gen, carry, t, N, ESSrmin, summaries, need_gen,
     else:
         logetat, aux = None, wgts
     du = max(fk.du, 1)
-    if points is None:
+    if points is None and ctx is not None:
+        points = rqmc.sobol_sorted0(gen, _dist_qmc_count(N, ctx), du + 1,
+                                    start=ctx.rank * N, count=N)
+    elif points is None:
         if N & (N - 1) == 0 and N <= 1 << 24:
             points = rqmc.sobol_sorted0(gen, N, du + 1)
         else:
@@ -339,8 +375,15 @@ def _step_qmc(fk, gen, carry, t, N, ESSrmin, summaries, need_gen,
             points = u.index_select(
                 0, torch.sort(u[:, 0], stable=True).indices)
     su = points[:, 0].contiguous()
-    (Xp,), A = ops.repeat_cols_su(su, rs.pinned_cdf(aux.W), N,
-                                  [X.contiguous()], want_anc=need_gen)
+    if ctx is None:
+        (Xp,), A = ops.repeat_cols_su(su, rs.pinned_cdf(aux.W), N,
+                                      [X.contiguous()], want_anc=need_gen)
+    else:
+        from particles_tpu_torch.parallel import dqmc
+
+        out = dqmc.ring_merge_resample(X, su, aux.W, ctx.group,
+                                       return_ancestors=need_gen)
+        Xp, A = out if need_gen else (out, None)
     if logetat is None:
         lw_reset = torch.zeros_like(lw)
     else:
@@ -350,16 +393,17 @@ def _step_qmc(fk, gen, carry, t, N, ESSrmin, summaries, need_gen,
     X_new = fk.Gamma(t, Xp, v)
     lw_new = lw_reset + fk.logG(t, Xp, X_new)
     if need_gen:
-        X_h, (lw_h, A_s, Xp_h) = _qmc_reorder(X_new, (lw_new, A, Xp))
+        X_h, (lw_h, A_s, Xp_h) = _reorder(X_new, (lw_new, A, Xp))
     else:
-        X_h, (lw_h,) = _qmc_reorder(X_new, (lw_new,))
+        X_h, (lw_h,) = _reorder(X_new, (lw_new,))
         A_s = Xp_h = None
     h_wgts = rs.Weights(lw_h)
     loglt = h_wgts.log_mean
     logLt = carry.logLt + loglt
     view = StepView(fk=fk, t=t, X=X_h, Xp=Xp_h, A=A_s, wgts=h_wgts, aux=aux,
-                    rs_flag=True, logLt=logLt, loglt=loglt, N=N,
-                    ESSrmin=ESSrmin, gen=gen)
+                    rs_flag=True, logLt=logLt, loglt=loglt,
+                    N=N if ctx is None else N * ctx.D, ESSrmin=ESSrmin,
+                    gen=gen if ctx is None else ctx.gen)
     states, outs = ((), ()) if summaries is None else summaries.step(
         view, carry.col_states)
     carry = _Carry(X=X_h, lw=lw_h, logLt=logLt, log_mean_w=h_wgts.log_mean,

@@ -89,15 +89,22 @@ def invlogit(x):
     return torch.sigmoid(x)
 
 
+def _integerise(x, m, sd, nbits):
+    """Each coordinate of ``x`` standardised by the given mean ``m`` and sd
+    ``sd`` (each (d,)), squashed by the logistic CDF and cut into 2^nbits
+    integer cells.  The single-device sort and the distributed one
+    (``parallel.dqmc``, whose m and sd are global) both call it, so that
+    given the same m and sd they give the same cells."""
+    u = torch.sigmoid((x - m) / sd)
+    return torch.floor(u * (1 << nbits)).clamp_(0, (1 << nbits) - 1).to(
+        torch.int64)
+
+
 def _standardise_and_integerise(x, nbits):
     """Each coordinate standardised (mean 0, population sd 1, as
     ``jnp.std``), squashed by the logistic CDF and cut into 2^nbits
     integer cells."""
-    m = x.mean(0)
-    s = x.std(0, correction=0) + 1e-30
-    u = torch.sigmoid((x - m) / s)
-    return torch.floor(u * (1 << nbits)).clamp_(0, (1 << nbits) - 1).to(
-        torch.int64)
+    return _integerise(x, x.mean(0), x.std(0, correction=0) + 1e-30, nbits)
 
 
 def hilbert_sort(x, nbits=None):

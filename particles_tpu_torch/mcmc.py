@@ -31,8 +31,13 @@ How this port runs them:
   samplers' ``update_theta`` and ``update_states`` take the run's
   ``torch.Generator`` where the JAX package takes a key.
 
-Single device only: the JAX package's ``mesh`` option (chains across
-devices) is ROADMAP A.11b.
+* **Chains across ranks.**  With ``mesh`` (a ``DeviceMesh``,
+  ``parallel.make_mesh``) and ``mesh_axis``, the ``nchains`` chains split
+  over that axis's process group: each rank runs its nchains / D chains
+  as one batch, from its own generator (``distctx.rank_generator`` of
+  ``seed`` and the rank), and at the end one all-gather gives every rank
+  the whole (niter, nchains, ...) chain.  The chains are independent, so
+  nothing else crosses the ranks.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 
 from particles_tpu_torch import core
+from particles_tpu_torch import distctx
 from particles_tpu_torch import inner_pf
 from particles_tpu_torch import resampling as rs
 from particles_tpu_torch import smc_samplers as ssp
@@ -243,23 +249,29 @@ class GenericRWHM(MCMC):
     leaves, the layout of :mod:`variance_mcmc`.  ``theta0`` gives the start:
     a dict over the prior's fields of scalars (every chain) or, with
     ``nchains > 1``, of (nchains,) arrays (one start a chain).
+
+    ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``) and
+    ``mesh_axis`` (one of its dimension names; None for a 1-D mesh) split
+    the chains over that axis's ranks: call on every rank with the same
+    arguments.  Each rank runs nchains / D chains (global chains ``[rank
+    nchains / D, (rank + 1) nchains / D)``) from its own generator, made
+    from ``seed`` (a ``generator`` raises ``ValueError``), and ``run()``
+    ends with one all-gather, so that every rank holds the whole chain.
+    ``ValueError`` when D does not divide ``nchains``.
     """
 
     def __init__(self, niter=10, verbose=0, theta0=None, adaptive=True,
                  scale=1.0, rw_cov=None, seed=0, generator=None, device=None,
                  nchains=1, mesh=None, mesh_axis=None):
-        if mesh is not None or mesh_axis is not None:
-            raise NotImplementedError(
-                "mesh: chains across devices are ROADMAP A.11b (the port's "
-                "distributed path shards a filter's particles over "
-                "torch.distributed ranks, parallel.run_shardmap_smc; "
-                "chains x devices is not ported yet); the chains run on "
-                "one device")
         super().__init__(niter=niter, verbose=verbose, seed=seed,
                          generator=generator, device=device)
         self.theta0 = theta0
         self.adaptive = adaptive
         self.nchains = int(nchains)
+        # this rank's chains: nloc of them from global chain off on
+        self._group, self._nloc, self._off = None, self.nchains, 0
+        if mesh is not None or mesh_axis is not None:
+            self._shard_chains(mesh, mesh_axis, seed, generator)
         self.template = _theta_template(self.prior, self.gen)
         self.dim = int(_dict_to_vec(self.template).shape[0])
         if self.adaptive:
@@ -274,12 +286,30 @@ class GenericRWHM(MCMC):
                                         dtype=torch.float32))
             self.fixed_L = torch.linalg.cholesky(cov).to(self.device)
 
+    def _shard_chains(self, mesh, mesh_axis, seed, generator):
+        import torch.distributed as dist
+
+        if mesh is None:
+            raise ValueError("mesh_axis given without a mesh")
+        if generator is not None:
+            raise ValueError("mesh: each rank draws from its own generator, "
+                             "made from seed; pass seed, not generator")
+        group = (mesh.get_group() if mesh_axis is None
+                 else mesh.get_group(mesh_axis))
+        D, d = dist.get_world_size(group), dist.get_rank(group)
+        if self.nchains % D:
+            raise ValueError(f"nchains={self.nchains} not divisible by mesh "
+                             f"axis {mesh_axis!r} size {D}")
+        self._group, self._nloc = group, self.nchains // D
+        self._off = d * self._nloc
+        self.gen = distctx.rank_generator(seed, d, self.device)
+
     def logpost(self, theta):
         raise NotImplementedError
 
     def _theta0(self):
-        """The starting points, (nchains, dim)."""
-        nc = self.nchains
+        """This rank's starting points, (nchains / D, dim)."""
+        nc = self._nloc
         if self.theta0 is None:
             return _dicts_to_vecs(self.prior.rvs(self.gen, size=nc),
                                   self.template)
@@ -295,19 +325,21 @@ class GenericRWHM(MCMC):
                  torch.as_tensor(np.asarray(v, dtype=np.float32),
                                  device=self.device))
             tgt = (nc,) + tuple(tv.shape)
+            if v.shape == (self.nchains,) + tuple(tv.shape):
+                v = v[self._off:self._off + nc]      # this rank's chains
             if v.shape == tv.shape:
                 v = v.expand(tgt)            # the same start, every chain
             elif v.shape != tgt:
                 raise ValueError(
                     f"theta0[{k!r}]: shape {tuple(v.shape)} is neither the "
                     f"template shape {tuple(tv.shape)} nor the per-chain "
-                    f"shape {tgt}")
+                    f"shape {(self.nchains,) + tuple(tv.shape)}")
             th0[k] = v
         return _dicts_to_vecs(th0, self.template)
 
     def _tracker0(self):
         if self.adaptive:
-            return self.cov_tracker.init_state((self.nchains,))
+            return self.cov_tracker.init_state((self._nloc,))
         return None
 
     @utils.timer
@@ -321,9 +353,9 @@ class GenericRWHM(MCMC):
 
     def _chain(self, draws=None):
         """The chain loop, on the device with no host read: fills
-        ``self._thetas`` (niter, nchains, dim), ``self._lposts`` and
-        ``self._nacc``."""
-        nc, dim, gen = self.nchains, self.dim, self.gen
+        ``self._thetas`` (niter, nchains / D, dim), ``self._lposts`` and
+        ``self._nacc`` (this rank's chains)."""
+        nc, dim, gen = self._nloc, self.dim, self.gen
         dev = self.device
         vec = self._theta0()
         lpost = self.logpost(_vec_to_dict(vec, self.template))
@@ -362,8 +394,18 @@ class GenericRWHM(MCMC):
     def _finish(self):
         """The chain as ``self.chain`` (leaves (niter, ...) for one chain,
         (niter, nchains, ...) for several) and the accept counts
-        ``self.nacc``, read on the host."""
+        ``self.nacc``, read on the host.  With chains across ranks, every
+        rank's chains are gathered first (one all-gather each of the
+        states, the log-posteriors and the counts)."""
         thetas, lposts = self._thetas, self._lposts
+        if self._group is not None:
+            from particles_tpu_torch.parallel import comm
+
+            thetas, lposts = (
+                comm.all_gather(a.transpose(0, 1).contiguous(),
+                                self._group).transpose(0, 1)
+                for a in (thetas, lposts))
+            self._nacc = comm.all_gather(self._nacc, self._group)
         if self.nchains == 1:
             thetas, lposts = thetas[:, 0], lposts[:, 0]
         self.chain = ssp.ThetaParticles(

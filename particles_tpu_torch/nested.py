@@ -328,18 +328,22 @@ class NestedSamplingSMC(ssps.FKSMCsampler):
     def logG_and_update(self, t, x, gen=None):
         """The new level, the evidence it adds and the potentials: 0 above
         the level and -inf below it, or 0 everywhere once the run stops
-        (reference nested.py:330-373)."""
+        (reference nested.py:330-373).  The level and the evidence read
+        the global log-likelihoods, one gathered (N0,) vector under
+        particle sharding (``smc_samplers._gather_global``), so that they
+        are the same on every rank."""
         llik = x.llik
         curr_evid = x.shared["log_evid"]
-        N0 = llik.shape[0]
-        lt = _quantile(llik, np.float32(100.0 * (1.0 - self.ESSrmin))
+        llik_all = ssps._gather_global(llik)
+        N0 = llik_all.shape[0]
+        lt = _quantile(llik_all, np.float32(100.0 * (1.0 - self.ESSrmin))
                        / np.float32(100.0))
         log_shrink = float(np.float32(t) * np.log(np.float32(self.ESSrmin))
                            - np.log(np.float32(N0)))
         lZt = log_shrink + rs.log_sum_exp(
-            torch.where(llik <= lt, llik, -torch.inf))
+            torch.where(llik_all <= lt, llik_all, -torch.inf))
         new_evid = torch.logaddexp(curr_evid, lZt)
-        lZt_final = log_shrink + rs.log_sum_exp(llik)
+        lZt_final = log_shrink + rs.log_sum_exp(llik_all)
         new_evid_final = torch.logaddexp(curr_evid, lZt_final)
         stop = (new_evid - new_evid_final).abs() < self.eps
         lt = torch.where(stop, torch.inf, lt)

@@ -9,7 +9,8 @@ order, as with any collective.
 Each function counts its calls in :data:`calls`, as the kernels'
 wrappers count their launches (``ops.KERNELS``): ``pmax`` and ``psum``
 are one all-reduce each, ``all_gather`` one all-gather, ``ring_shift`` one
-hop of the ring (one ``batch_isend_irecv`` for every tensor it moves).
+hop of the ring and ``exchange`` one swap with a partner (one
+``batch_isend_irecv`` for every tensor either moves).
 
 Where the operands live: under NCCL they stay on the device.  Under gloo
 an operand on a CUDA device passes through host memory (copied out,
@@ -23,10 +24,11 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["calls", "reset_calls", "pmax", "psum", "all_gather",
-           "ring_shift"]
+           "ring_shift", "exchange"]
 
 # calls of each collective since the last reset_calls()
-calls = {"pmax": 0, "psum": 0, "all_gather": 0, "ring_shift": 0}
+calls = {"pmax": 0, "psum": 0, "all_gather": 0, "ring_shift": 0,
+         "exchange": 0}
 
 
 def reset_calls():
@@ -88,6 +90,22 @@ def all_gather(x, group=None):
     return _from_wire(torch.cat(parts), back)
 
 
+def _send_recv(tensors, to, frm, group):
+    """Send each of ``tensors`` to group rank ``to`` and receive the
+    same-shaped tensors of group rank ``frm``, in one
+    ``batch_isend_irecv``; returns the received tensors, in order."""
+    to, frm = _peer(group, to), _peer(group, frm)
+    wired = [_to_wire(t.contiguous(), group) for t in tensors]
+    recv = [torch.empty_like(buf) for buf, _ in wired]
+    ops = ([dist.P2POp(dist.isend, buf, to, group, tag=i)
+            for i, (buf, _) in enumerate(wired)]
+           + [dist.P2POp(dist.irecv, r, frm, group, tag=i)
+              for i, r in enumerate(recv)])
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [_from_wire(r, back) for r, (_, back) in zip(recv, wired)]
+
+
 def ring_shift(tensors, group=None):
     """One hop of the ring: every rank sends each of ``tensors`` to rank
     ``(rank + 1) % D`` and receives the same-shaped tensors of rank
@@ -96,14 +114,12 @@ def ring_shift(tensors, group=None):
     calls["ring_shift"] += 1
     D = dist.get_world_size(group)
     rank = dist.get_rank(group)
-    nxt = _peer(group, (rank + 1) % D)
-    prv = _peer(group, (rank - 1) % D)
-    wired = [_to_wire(t.contiguous(), group) for t in tensors]
-    recv = [torch.empty_like(buf) for buf, _ in wired]
-    ops = ([dist.P2POp(dist.isend, buf, nxt, group, tag=i)
-            for i, (buf, _) in enumerate(wired)]
-           + [dist.P2POp(dist.irecv, r, prv, group, tag=i)
-              for i, r in enumerate(recv)])
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return [_from_wire(r, back) for r, (_, back) in zip(recv, wired)]
+    return _send_recv(tensors, (rank + 1) % D, (rank - 1) % D, group)
+
+
+def exchange(tensors, partner, group=None):
+    """Swap ``tensors`` with group rank ``partner``, which calls this with
+    this rank as its partner and same-shaped tensors, in one
+    ``batch_isend_irecv``.  Returns the partner's tensors, in order."""
+    calls["exchange"] += 1
+    return _send_recv(tensors, partner, partner, group)

@@ -1,5 +1,6 @@
-"""The particle-sharded filter on ``torch.distributed``: ring resampling,
-``run_shardmap_smc`` and sharded FFBS-MCMC.
+"""The particle-sharded engine on ``torch.distributed``: ring resampling,
+``run_shardmap_smc`` (filters, SQMC and the SMC samplers) and sharded
+FFBS-MCMC.
 
 Counterpart of ``particles_tpu/parallel/distributed.py``.  Every function
 here is called on every rank of a process group (SPMD, one process a
@@ -27,9 +28,12 @@ and ``multinomial`` (one globally sorted set of uniforms made with no
 communication: the boundary order statistics from the replicated
 generator, each rank's interior from its own; served by the merge ring of
 :mod:`particles_tpu_torch.parallel.dqmc`: B6 twice, then B5 and B2 a
-hop).  Distributed
-SQMC, the sharded samplers, NS-SMC and SMC², chains across devices and
-the GSPMD entry points are ROADMAP A.11b.
+hop).  Another scheme (``residual``, ``ssp``, ``killing``) has no ring:
+:func:`run_sharded_smc <particles_tpu_torch.parallel.sharded.run_sharded_smc>`
+serves it by :func:`gathered_resample` (the global weights gathered once,
+the scheme's z-form on every rank, the z ring), while
+:func:`run_shardmap_smc` refuses it, as the JAX package's does.
+Distributed SQMC is in :mod:`particles_tpu_torch.parallel.dqmc`.
 """
 
 from __future__ import annotations
@@ -45,8 +49,8 @@ from particles_tpu_torch.parallel import comm
 
 __all__ = ["RING_SCHEMES", "counter_uniforms", "ring_systematic_resample",
            "ring_stratified_resample", "ring_multinomial_resample",
-           "ring_resample", "ring_serve", "run_shardmap_smc",
-           "sharded_backward_mcmc"]
+           "gathered_resample", "ring_resample", "ring_serve",
+           "run_shardmap_smc", "sharded_backward_mcmc"]
 
 RING_SCHEMES = ("systematic", "stratified", "multinomial")
 
@@ -56,8 +60,8 @@ def _check_scheme(scheme):
         raise NotImplementedError(
             f"resampling scheme {scheme!r} is not supported under particle "
             "sharding (rings exist for systematic/stratified z-forms and the "
-            "multinomial sorted-uniform merge; ssp/residual/killing have no "
-            "distributed form)")
+            "multinomial sorted-uniform merge; parallel.run_sharded_smc "
+            "serves ssp/residual/killing by their gathered z-form)")
 
 
 def _serve_z(z_blk, d, Mloc):
@@ -270,12 +274,41 @@ def ring_multinomial_resample(x_loc, W_loc, gen, rank_gen, M, group=None,
                                     return_ancestors)
 
 
+def gathered_resample(scheme, gen, x_loc, W_loc, M, group=None,
+                      return_ancestors=False):
+    """Resampling of M particles in all by a scheme with no ring
+    (``residual``, ``ssp``, ``killing``, or any of ``resampling.rs_funcs``),
+    sharded over ``group``: one all-gather of the weights, then on every
+    rank the scheme's z-form of the global weights from ``gen`` (the
+    REPLICATED generator, so that every rank computes the same z; a
+    scheme without one, ``killing``, gives its ancestors, whose sorted
+    order serves the same offspring counts), then the z ring
+    (:func:`_z_ring`: D hops of B2, D - 1 shifts).  Returns what
+    :func:`ring_systematic_resample` returns."""
+    D, d = dist.get_world_size(group), dist.get_rank(group)
+    _check_M(M, D)
+    Nloc = W_loc.shape[0]
+    W = comm.all_gather(W_loc, group)
+    if scheme in rs.rs_counts_funcs:
+        z = rs.resampling_z(scheme, gen, W, M)
+    else:
+        A = rs.resampling(scheme, gen, W, M)
+        z = torch.cumsum(torch.bincount(A, minlength=W.shape[0]), 0).to(
+            torch.int32)
+    zb_ext = torch.cat([z.new_zeros(1), z[Nloc - 1::Nloc]])
+    return _z_ring(x_loc, z[d * Nloc:(d + 1) * Nloc].contiguous(), zb_ext,
+                   Nloc, M, group, return_ancestors)
+
+
 def ring_resample(scheme, gen, x_loc, W_loc, M, return_ancestors=False):
     """The engine's resampling under a :mod:`particles_tpu_torch.distctx`
     context: the ring of ``scheme``, its shared draws from ``gen`` (the
-    run's replicated generator), over the context's group."""
-    _check_scheme(scheme)
+    run's replicated generator), over the context's group; a scheme with
+    no ring goes through :func:`gathered_resample`."""
     ctx = distctx.current()
+    if scheme not in RING_SCHEMES:
+        return gathered_resample(scheme, gen, x_loc, W_loc, M, ctx.group,
+                                 return_ancestors)
     if scheme == "systematic":
         u = torch.rand((), generator=gen, device=W_loc.device)
         return ring_systematic_resample(x_loc, W_loc, u, M, ctx.group,
@@ -296,39 +329,57 @@ def run_shardmap_smc(fk, N, seed=0, group=None, resampling="systematic",
     process group; None for the default one), with the same arguments.
     Each rank runs :class:`particles_tpu_torch.core.SMC` on its N/D
     particles under a :mod:`particles_tpu_torch.distctx` context, so every
-    feature of the single-device filter behaves as there:
+    feature of the single-device engine behaves as there:
 
     * bootstrap, guided and auxiliary filters (an auxiliary filter's reset
       weights are recomputed from the served particles);
     * adaptive resampling through the ring of ``resampling``
       (``systematic``, ``stratified`` or ``multinomial``), on a decision
       that reads the all-reduced ESS, the same on every rank;
+    * SQMC (``qmc=True``; the global N a power of two): the rank's rows of
+      one globally sorted Sobol set, the merge ring, the distributed
+      Hilbert sort (:mod:`particles_tpu_torch.parallel.dqmc`);
+    * the SMC samplers (``fk.is_sampler``: IBIS, tempering, adaptive
+      tempering, NS-SMC, SMC²), through the same ``SMC`` on the rank's
+      slice: N is the global number of starting points, a rank carries
+      ``fk.N0(N / D)`` particles (:func:`smc_samplers.sampler_next`);
     * the collectors that are ``dist_safe`` (the default ESSs, logLts and
-      rs_flags, and ``Moments``, whose moments are global);
+      rs_flags, and ``Moments``, whose moments are global); a sampler
+      takes any collector, and its history, on the step's gathered
+      particles;
     * the history (``store_history``: full, rolling or partial) of the
-      rank's slices, with GLOBAL ancestor indices.
+      rank's slices, with GLOBAL ancestor indices (a sampler's
+      ``SamplerHistory`` holds the global particles).
 
     The run's generator, seeded by ``seed``, is replicated: it draws the
-    resampling uniforms.  The model draws come from the rank's generator
-    (:func:`distctx.rank_generator` of ``seed`` and the rank).
+    resampling uniforms and SQMC's points.  The model's and the moves'
+    draws come from the rank's generator (:func:`distctx.rank_generator`
+    of ``seed`` and the rank).
 
     Returns an :class:`particles_tpu_torch.core.SMCResult`: ``logLt`` and
     the collectors' records (the same on every rank), ``X`` and ``lw``,
-    the rank's final particles and log-weights, and ``hist``, the rank's
-    history (feed a full one to :func:`sharded_backward_mcmc`).
+    the rank's final particles and log-weights (for a sampler, its
+    ``ThetaParticles`` slice, whose ``shared`` entries are the same on
+    every rank), and ``hist``, the rank's history (feed a full one to
+    :func:`sharded_backward_mcmc`).
 
-    Raises ``NotImplementedError`` for another scheme, a collector that is
-    not ``dist_safe``, ``qmc=True`` and an SMC sampler (ROADMAP A.11b), and
-    ``ValueError`` when D does not divide N.
+    Raises ``NotImplementedError`` for another scheme (see
+    :func:`particles_tpu_torch.parallel.sharded.run_sharded_smc`), for a
+    filter's collector that is not ``dist_safe`` and for SQMC at a global
+    N that is not a power of two, and ``ValueError`` when D does not
+    divide N.
     """
+    _check_scheme(resampling)
+    return _run_sharded(fk, N, seed, group, resampling, ESSrmin, qmc,
+                        collect, store_history)
+
+
+def _run_sharded(fk, N, seed, group, resampling, ESSrmin, qmc, collect,
+                 store_history):
+    """:func:`run_shardmap_smc` with any scheme of ``resampling.rs_funcs``
+    (one with no ring goes through :func:`gathered_resample`)."""
     from particles_tpu_torch import core
 
-    if getattr(fk, "is_sampler", False):
-        raise NotImplementedError(
-            "run_shardmap_smc: SMC samplers (IBIS, tempering, NS-SMC, SMC²) "
-            "under particle sharding are ROADMAP A.11b; run them on one "
-            "device")
-    _check_scheme(resampling)
     D, d = dist.get_world_size(group), dist.get_rank(group)
     if N % D:
         raise ValueError(f"N={N} not divisible by the group's size {D}")
@@ -338,7 +389,7 @@ def run_shardmap_smc(fk, N, seed=0, group=None, resampling="systematic",
     cols = [] if pf.summaries is None else pf.summaries._collectors
     bad = [type(c).__name__ for c in cols
            if not getattr(c, "dist_safe", False)]
-    if bad:
+    if bad and not pf.is_sampler:
         raise NotImplementedError(
             f"run_shardmap_smc: collector(s) {bad} are not supported under "
             "particle sharding (genealogy-walking / stateful collectors "

@@ -1,12 +1,27 @@
-"""The merge ring: inverse-CDF resampling of sorted uniforms over ranks.
+"""Distributed SQMC: the merge ring and the distributed Hilbert sort.
 
-Counterpart of ``particles_tpu/parallel/dqmc.py``'s ``_merge_serve_fn``
-and ``ring_merge_resample``, which the multinomial ring rides: rank d
-holds the d-th block of one globally sorted set of uniforms, and the
-ancestor of each is the particle whose global normalised cumulative
-weight first reaches it.  The distributed Hilbert sort and sorted-Sobol
-serve of distributed SQMC (``dist_sort_with``, ``_dist_hilbert_keys``,
-``dist_qmc_reorder``) are not ported (ROADMAP A.11b).
+Counterpart of ``particles_tpu/parallel/dqmc.py``.  SQMC needs two global
+orders a step that a rank's slice alone cannot give: the inverse-CDF
+serve pairs the globally sorted first Sobol coordinate with the global
+cumulative weights, and the particles are kept in the global Hilbert
+order.  Here:
+
+* each rank draws its rows ``[rank N_local, (rank + 1) N_local)`` of one
+  globally sorted Sobol set (``rqmc.sobol_sorted0`` with ``start`` and
+  ``count``, from the replicated generator): no communication;
+* :func:`ring_merge_resample` serves them, rank d holding the d-th block
+  of one globally sorted set of uniforms (the multinomial ring rides it
+  too): the ancestor of each is the particle whose global normalised
+  cumulative weight first reaches it;
+* :func:`dist_sort_with` sorts (key, payloads) globally by odd-even block
+  transposition: one stable local sort, then D merge-split rounds, each
+  one :func:`comm.exchange` with a partner; :func:`dist_qmc_reorder`
+  sorts the particles by their Hilbert keys (:func:`_dist_hilbert_keys`,
+  standardised by global sums).
+
+The key is the port's one int64 Hilbert index (``hilbert.hilbert_index``),
+where the JAX package sorts by two uint32 words; the order is the same.
+Every function is called on every rank of the group.
 """
 
 from __future__ import annotations
@@ -14,15 +29,97 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from particles_tpu_torch import hilbert
 from particles_tpu_torch import ops
+from particles_tpu_torch.parallel import comm
+from particles_tpu_torch.resampling import _monotone_nonnegative
 
-__all__ = ["ring_merge_resample"]
+__all__ = ["dist_sort_with", "dist_qmc_reorder", "ring_merge_resample"]
 
 
-def _monotone_nonnegative(v):
-    """The running max of float32 ``v >= 0``, by B6 on its bit patterns
-    (a nonnegative float's int32 bits order as its value): one launch."""
-    return ops.running_max(v.view(torch.int32)).view(torch.float32)
+def _round_pairing(D, r):
+    """The pairs of odd-even transposition round ``r`` over D ranks:
+    ``(partner, keep_lower)``, ``partner[i]`` the rank that rank i merges
+    with (None: it sits the round out) and ``keep_lower[i]`` whether it
+    keeps the lower half (it is the lower rank of its pair)."""
+    partner = [None] * D
+    keep_lower = [False] * D
+    for i in range(r % 2, D - 1, 2):
+        partner[i], partner[i + 1] = i + 1, i
+        keep_lower[i] = True
+    return partner, keep_lower
+
+
+def _take(order, tensors):
+    return [t.index_select(0, order) for t in tensors]
+
+
+def dist_sort_with(key, payloads, group=None):
+    """Sort ``key`` ((N_local,), any sortable dtype) and the tensors
+    ``payloads`` ((N_local, ...) each) globally by ``key``, leaving rank d
+    with the d-th block of N_local: ``(key, payloads)`` sorted.
+
+    Odd-even block transposition: one stable local sort, then D
+    merge-split rounds (by the 0-1 principle D rounds sort D sorted
+    blocks).  In a round the two partners swap their blocks (one
+    :func:`comm.exchange`), both concatenate them with the LOWER rank's
+    block first and sort stably, and the lower rank keeps the first half:
+    tied keys split the same way on both, so every element is kept
+    exactly once, and the result is that of one stable sort of the
+    global arrays."""
+    order = torch.sort(key, stable=True).indices
+    key, *rest = _take(order, [key, *payloads])
+    D, d = dist.get_world_size(group), dist.get_rank(group)
+    n = key.shape[0]
+    for r in range(D):
+        partner, keep_lower = _round_pairing(D, r)
+        if partner[d] is None:
+            continue
+        mine = [key, *rest]
+        theirs = comm.exchange(mine, partner[d], group)
+        lower, upper = (mine, theirs) if keep_lower[d] else (theirs, mine)
+        both = [torch.cat([a, b]) for a, b in zip(lower, upper)]
+        order = torch.sort(both[0], stable=True).indices
+        key, *rest = _take(order[:n] if keep_lower[d] else order[n:], both)
+    return key, tuple(rest)
+
+
+def _dist_moments(X, group=None):
+    """The global mean and population sd of each column of the rank's
+    (N_local, d) ``X``, by one fused all-reduce of the sums of x and x^2,
+    as the JAX package takes them: ``sd = sqrt(max(s2 / n - m^2, 0)) +
+    1e-30``."""
+    n = X.shape[0] * dist.get_world_size(group)
+    s1, s2 = comm.psum(X.sum(0), (X * X).sum(0), group=group)
+    m = s1 / n
+    return m, torch.sqrt(torch.clamp(s2 / n - m * m, min=0.0)) + 1e-30
+
+
+def _dist_hilbert_keys(X, group=None):
+    """The Hilbert keys of the rank's particles ``X`` ((N_local,) or
+    (N_local, d)), standardised by the GLOBAL mean and sd
+    (:func:`_dist_moments`) with ``nbits = sort_nbits(N_local D, d)``, so
+    that every rank cuts cells of one bounding box: given the same m and
+    sd they are the keys a single device gives the joined particles
+    (``hilbert._integerise``).  In 1-d the key is the particle itself."""
+    if X.ndim == 1:
+        return X
+    if X.shape[1] == 1:
+        return X[:, 0]
+    nbits = hilbert.sort_nbits(X.shape[0] * dist.get_world_size(group),
+                               X.shape[1])
+    m, sd = _dist_moments(X, group)
+    return hilbert.hilbert_index(hilbert._integerise(X, m, sd, nbits), nbits)
+
+
+def dist_qmc_reorder(X, extras, group=None):
+    """The rank's particles ``X`` ((N_local,) or (N_local, d)) and the
+    (N_local, ...) tensors ``extras`` in the GLOBAL Hilbert order of the
+    particles, rank d ending with the d-th block: ``(X, extras)``, the
+    distributed counterpart of ``core._qmc_reorder``."""
+    _, (X, *rest) = dist_sort_with(_dist_hilbert_keys(X, group),
+                                   (X,) + tuple(extras), group)
+    return X, tuple(rest)
 
 
 def _merge_serve_z(su_loc, cs_blk, Mloc):

@@ -269,11 +269,26 @@ def inverse_cdf(su, W):
     return torch.searchsorted(cs, su).clamp_(max=W.shape[0] - 1)
 
 
+def _monotone_nonnegative(v):
+    """The running max of float32 ``v >= 0``, by B6 on its bit patterns (a
+    nonnegative float's int32 bits order as its value): one launch, which
+    changes nothing on ``v`` already in order."""
+    return running_max(v.view(torch.int32)).view(torch.float32)
+
+
+def _sorted_cumsum(E):
+    """The cumulative sums of the nonnegative ``E``, nondecreasing by
+    construction: a float cumsum on the card can leave neighbours an ulp
+    out of order (ROADMAP C.13), and B5 takes sorted uniforms."""
+    return _monotone_nonnegative(torch.cumsum(E, 0))
+
+
 def uniform_spacings(gen, N):
     """N sorted uniforms in O(N): normalised cumulative sums of N + 1
-    exponentials, drawn on the generator's device."""
+    exponentials, drawn on the generator's device (sorted by
+    construction: :func:`_sorted_cumsum`, B6)."""
     E = torch.empty(N + 1, device=gen.device).exponential_(generator=gen)
-    z = torch.cumsum(E, 0)
+    z = _sorted_cumsum(E)
     return z[:-1] / z[-1]
 
 
@@ -356,8 +371,8 @@ def _multinomial_z_of(su, W, M):
 
 
 def multinomial_z(gen, W, M=None):
-    """Multinomial z-form ~ Multinomial(M, W): sorted uniforms (spacings)
-    merged against the monotone CDF (B3, B5)."""
+    """Multinomial z-form ~ Multinomial(M, W): sorted uniforms (spacings,
+    B6) merged against the monotone CDF (B3, B5)."""
     M = W.shape[0] if M is None else M
     return _multinomial_z_of(uniform_spacings(gen, M), W, M)
 
@@ -384,15 +399,16 @@ def residual_counts(gen, W, M=None):
     The number of residual draws ``sres = M - sum(floor(M W))`` stays on
     the device: the first k of ``cumsum(E) / cumsum(E)[k]`` are k sorted
     uniforms for any k, so M + 1 exponentials give them with fixed shapes,
-    and the draws past ``sres`` are masked above every cs (B3, B5).
+    and the draws past ``sres`` are masked above every cs (B6 sorts the
+    sums, then B3, B5).
     """
     M = W.shape[0] if M is None else M
     MW = W * M
     intpart = torch.floor(MW).to(torch.int32)
     res = MW - intpart
     sres = M - intpart.sum()
-    z_exp = torch.cumsum(
-        torch.empty(M + 1, device=W.device).exponential_(generator=gen), 0)
+    z_exp = _sorted_cumsum(
+        torch.empty(M + 1, device=W.device).exponential_(generator=gen))
     denom = z_exp.index_select(0, sres.clamp(0, M).reshape(1))
     su = z_exp[:-1] / denom
     su = torch.where(torch.arange(M, device=W.device) < sres, su, 2.0)

@@ -52,15 +52,24 @@ How this port runs them:
   one ``torch.func.vmap`` of ``logpyt`` over ``arange(T)``, in chunks of
   particles that bound its (T, n) intermediate.
 
-Single device only: the JAX package's sharded samplers, NS-SMC and SMC²
-(``_run_shardmap_sampler``: the waste-free ring resample at M != N, the
-gathered llik of the exponent's bisection, the sharded exchange step) are
-ROADMAP A.11b; the particle-sharded filter they would sit on is
-:func:`particles_tpu_torch.parallel.run_shardmap_smc`.
+* **Under particle sharding** (:func:`particles_tpu_torch.parallel.
+  run_shardmap_smc`, an ``SMC`` on each rank's slice under a
+  :mod:`particles_tpu_torch.distctx` context) the same step runs on every
+  rank: a rank carries N0/D particles and serves N/D starting points
+  through the ring of the scheme (the waste-free M != N0 shape change
+  rides ``ring_serve``'s ``Mloc``); the prior draws, chain moves and SMC²
+  inner filters draw from the rank's generator and the resampling
+  uniforms from the replicated one; the weights, moments and acceptance
+  rates are global (:func:`_dist_mean`), and the exponent's bisection,
+  the path sampling and NS-SMC's level and evidence run on every rank
+  on one gathered (N0,) vector (:func:`_gather_global`).  SMC²'s inner
+  filters step under ``distctx.local_context()``, so that their (Nx,)
+  reductions stay in their row.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from collections import deque
@@ -70,11 +79,13 @@ import torch
 
 from particles_tpu_torch import collectors as col
 from particles_tpu_torch import core
+from particles_tpu_torch import distctx
 from particles_tpu_torch import inner_pf
 from particles_tpu_torch import ops
 from particles_tpu_torch import resampling as rs
 from particles_tpu_torch import variance_mcmc
 from particles_tpu_torch.distributions import _cholesky
+from particles_tpu_torch.parallel import comm
 from particles_tpu_torch.utils import resolve_device
 from particles_tpu_torch.variance_mcmc import _host
 
@@ -116,6 +127,38 @@ LOGLIK_CHUNK = 2 ** 25
 # JAX package
 BISECTION_ROUNDS = 60
 PATH_SAMPLING_GRID = 10
+
+
+# ---------------------------------------------------------------------------
+# particle sharding
+# ---------------------------------------------------------------------------
+
+def _gN(n):
+    """The global particle count for a rank's ``n`` (``n`` itself outside a
+    :mod:`particles_tpu_torch.distctx` context)."""
+    ctx = distctx.current()
+    return n if ctx is None else n * ctx.D
+
+
+def _dist_mean(v):
+    """The mean of the (n,) ``v`` over every rank's particles (one
+    all-reduce under a context): the same on every rank."""
+    ctx = distctx.current()
+    if ctx is None:
+        return v.mean()
+    (s,) = comm.psum(v.sum(), group=ctx.group)
+    return s / (v.shape[0] * ctx.D)
+
+
+def _gather_global(v):
+    """The global (n D,) vector of the ranks' (n,) ``v``, in rank order, on
+    every rank (one all-gather; the identity outside a context).  The
+    exponent's bisection (~60 ESS evaluations), the path sampling and
+    NS-SMC's level and evidence then run the same on every rank: a
+    rank-local quantile or ``log_sum_exp`` there would be silently
+    wrong."""
+    ctx = distctx.current()
+    return v if ctx is None else comm.all_gather(v, ctx.group)
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +579,7 @@ class ArrayMetropolis(ArrayMCMC):
         lp_acc = torch.where(torch.isnan(lp_acc), -torch.inf, lp_acc)
         pb_acc = torch.exp(lp_acc.clamp(max=0.0))
         accept = u < pb_acc
-        return xprop.where(accept, x, out=out), pb_acc.mean()
+        return xprop.where(accept, x, out=out), _dist_mean(pb_acc)
 
 
 class ArrayRandomWalk(ArrayMetropolis):
@@ -669,7 +712,7 @@ class AdaptiveMCMCSequence(MCMCSequence):
                 x, target, *self._draws(gen, x, draws, i, target))
             accs.append(acc)
             diff = view_2d_array(x.theta) - arr0
-            new_dist = torch.linalg.vector_norm(diff, dim=1).mean()
+            new_dist = _dist_mean(torch.linalg.vector_norm(diff, dim=1))
             go_t = (new_dist - dist).abs() >= self.delta_dist * dist
             dist = new_dist
             i += 1
@@ -725,8 +768,8 @@ class FKSMCsampler(core.FeynmanKac):
         return f"t={smc.t}{extra}, ESS={float(smc.wgts.ESS):.2f}"
 
     def time_to_resample(self, view):
-        # against the particles carried, N0
-        return view.aux.ESS < view.X.N * view.ESSrmin
+        # against the particles carried, N0 (global under sharding)
+        return view.aux.ESS < _gN(view.X.N) * view.ESSrmin
 
     # --- the hooks of the sampler step ---
 
@@ -744,7 +787,9 @@ class FKSMCsampler(core.FeynmanKac):
 
 
 def _uniform_weights(N0, like):
-    return torch.full((N0,), 1.0 / N0, dtype=torch.float32,
+    """Equal weights of the rank's N0 particles, normalised over the
+    global count (calibrate's moments are global under sharding)."""
+    return torch.full((N0,), 1.0 / _gN(N0), dtype=torch.float32,
                       device=like.device)
 
 
@@ -813,14 +858,16 @@ class Tempering(FKSMCsampler):
     def move_target(self, t, x):
         return self.current_target(x.shared["exponent"])
 
-    def _path_sampling_update(self, x, delta):
+    def _path_sampling_update(self, x, delta, llik_all=None):
         """Trapezoidal path-sampling increment over a 10-point grid of
         exponents in [0, delta] (reference smc_samplers.py:821-834), the
         grid's softmaxes as one (10, N0) pass.  A particle with llik =
-        -inf has weight 0 and adds 0 (not 0 * -inf = NaN)."""
+        -inf has weight 0 and adds 0 (not 0 * -inf = NaN).  It reads the
+        global log-likelihoods: ``llik_all`` when given, else gathered
+        (:func:`_gather_global`)."""
         g = PATH_SAMPLING_GRID
         binwidth = delta / (g - 1)
-        llik = x.llik
+        llik = _gather_global(x.llik) if llik_all is None else llik_all
         finite = torch.isfinite(llik)
         llik_f = torch.where(finite, llik, 0.0)
         i = torch.arange(g, dtype=torch.float32, device=llik.device)
@@ -831,10 +878,10 @@ class Tempering(FKSMCsampler):
         inc = (mult * binwidth * (w * llik_f).sum(1)).sum()
         return x.shared["path_sampling"] + inc
 
-    def _logG_tempering(self, x, delta, new_epn):
+    def _logG_tempering(self, x, delta, new_epn, llik_all=None):
         dl = delta * x.llik
         dl = torch.where(torch.isnan(dl), -torch.inf, dl)
-        ps = self._path_sampling_update(x, delta)
+        ps = self._path_sampling_update(x, delta, llik_all)
         x = x.replace(lpost=x.lpost + dl)
         return dl, x.with_shared(exponent=new_epn, path_sampling=ps)
 
@@ -894,9 +941,12 @@ class AdaptiveTempering(Tempering):
         return True
 
     def logG_and_update(self, t, x, gen=None):
+        # one gather serves the bisection and the path sampling, the same
+        # on every rank under sharding
         epn = x.shared["exponent"]
-        new_epn = next_annealing_epn(epn, self.ESSrmin, x.llik)
-        return self._logG_tempering(x, new_epn - epn, new_epn)
+        llik_all = _gather_global(x.llik)
+        new_epn = next_annealing_epn(epn, self.ESSrmin, llik_all)
+        return self._logG_tempering(x, new_epn - epn, new_epn, llik_all)
 
 
 # ---------------------------------------------------------------------------
@@ -920,7 +970,9 @@ class _ReplayTarget:
         if gen is None:
             raise ValueError("SMC2's move target replays each θ's filter: "
                              "call it with a generator (its draws)")
-        xs, lws, ll = self.fk._inner(xx.theta, self.Nx).replay(gen, self.t)
+        with distctx.local_context():
+            xs, lws, ll = self.fk._inner(xx.theta, self.Nx).replay(gen,
+                                                                   self.t)
         return xx.replace(xs=xs, lws=lws, loglik=ll,
                           lpost=self.fk.prior.logpdf(xx.theta) + ll)
 
@@ -993,7 +1045,8 @@ class SMC2(FKSMCsampler):
     def _M0(self, gen, N0):
         self.exchanges = []          # a new run
         th = dict(self.prior.rvs(gen, size=N0))
-        xs, lws, ll = self._inner(th, self.init_Nx).init(gen)
+        with distctx.local_context():    # each row's reductions its own
+            xs, lws, ll = self._inner(th, self.init_Nx).init(gen)
         x = ThetaParticles(theta=th, lpost=self.prior.logpdf(th) + ll,
                            xs=xs, lws=lws, loglik=ll)
         cal = self.move.calibrate(_uniform_weights(N0, ll), x)
@@ -1006,8 +1059,9 @@ class SMC2(FKSMCsampler):
         filter steps."""
         if t == 0:
             return x.loglik, x
-        xs, lws, loglt = self._inner(x.theta, x.xs.shape[1]).step(
-            gen, t, x.xs, x.lws)
+        with distctx.local_context():
+            xs, lws, loglt = self._inner(x.theta, x.xs.shape[1]).step(
+                gen, t, x.xs, x.lws)
         return loglt, x.replace(xs=xs, lws=lws, loglik=x.loglik + loglt,
                                 lpost=x.lpost + loglt)
 
@@ -1019,7 +1073,8 @@ class SMC2(FKSMCsampler):
     def _replay_all(self, gen, x, t, new_Nx):
         """Every θ-particle's filter run afresh with ``new_Nx`` particles
         over the observations 0..t-1: ``(xs, lws, loglik)``."""
-        return self._inner(x.theta, new_Nx).replay(gen, t)
+        with distctx.local_context():
+            return self._inner(x.theta, new_Nx).replay(gen, t)
 
     def maybe_exchange(self, smc):
         """Called by the sampler step before each step t >= 1: after a
@@ -1029,7 +1084,11 @@ class SMC2(FKSMCsampler):
         correct the θ log-weights by ``delta = ll_new - ll_old``; logLt
         gains the weighted mean of exp(delta), and ``log_mean_w`` is that
         of the corrected weights, so the next step's increment is measured
-        against them.  The acceptance rate is read on the host."""
+        against them.  The acceptance rate is read on the host.
+
+        Under particle sharding the rate is the global mean, so every rank
+        takes the same decision; each replays its own θ rows from its own
+        generator, and the correction's weights are global."""
         if self.ar_to_increase_Nx <= 0.0 or smc.t == 0 or not smc.rs_flag:
             return
         acc = smc.X.shared.get("acc_rate")
@@ -1039,7 +1098,9 @@ class SMC2(FKSMCsampler):
         carry = smc._carry
         x = carry.X
         new_Nx = 2 * x.xs.shape[1]
-        xs, lws, ll_new = self._replay_all(smc.gen, x, smc.t, new_Nx)
+        ctx = distctx.current()
+        xs, lws, ll_new = self._replay_all(
+            smc.gen if ctx is None else ctx.gen, x, smc.t, new_Nx)
         delta = ll_new - x.loglik
         x = x.replace(xs=xs, lws=lws, loglik=ll_new, lpost=x.lpost + delta)
         new_lw = carry.lw + delta
@@ -1058,17 +1119,46 @@ class SMC2(FKSMCsampler):
 # the sampler step
 # ---------------------------------------------------------------------------
 
+def _model_gen(gen):
+    """The generator of the model's and the moves' draws: ``gen``, or under
+    a :mod:`particles_tpu_torch.distctx` context the rank's own."""
+    ctx = distctx.current()
+    return gen if ctx is None else ctx.gen
+
+
 def _sampler_step0(fk, gen, N, ESSrmin=None):
-    """Step t=0: ``(carry, view)``."""
-    X = fk.M0(gen, N)
-    G, X = fk.logG_and_update(0, X, gen)
+    """Step t=0: ``(carry, view)``.  Under a context ``N`` is the rank's
+    share of the starting points and the prior draws come from the rank's
+    generator."""
+    mgen = _model_gen(gen)
+    X = fk.M0(mgen, N)
+    G, X = fk.logG_and_update(0, X, mgen)
     wgts = rs.Weights(G)
     carry = core._Carry(X=X, lw=wgts.lw, logLt=wgts.log_mean,
                         log_mean_w=wgts.log_mean)
     view = core.StepView(fk=fk, t=0, X=X, Xp=X, A=None, wgts=wgts, aux=wgts,
                          rs_flag=False, logLt=wgts.log_mean,
-                         loglt=wgts.log_mean, N=N, ESSrmin=ESSrmin, gen=gen)
+                         loglt=wgts.log_mean, N=_gN(N), ESSrmin=ESSrmin,
+                         gen=mgen)
     return carry, view
+
+
+def _ring_subset(x, scheme, gen, W, M):
+    """The resample of M starting points in all under a context: every
+    per-particle leaf of ``x`` served by the ring of ``scheme`` (B2 a hop),
+    its shared uniforms from ``gen``, the replicated generator."""
+    from particles_tpu_torch.parallel import distributed
+
+    if scheme not in distributed.RING_SCHEMES:
+        raise NotImplementedError(
+            f"resampling scheme {scheme!r} is not supported for an SMC "
+            "sampler under particle sharding (rings exist for "
+            f"{', '.join(distributed.RING_SCHEMES)})")
+    leaves, unflatten = x._leaves()
+    served = distributed.ring_resample(scheme, gen, dict(enumerate(leaves)),
+                                       W, M)
+    return ThetaParticles(shared=dict(x.shared),
+                          **unflatten(list(served.values())))
 
 
 def _sampler_step(fk, gen, carry, t, N, scheme, ESSrmin, draws=None):
@@ -1085,31 +1175,42 @@ def _sampler_step(fk, gen, carry, t, N, scheme, ESSrmin, draws=None):
     ``draws`` replays given randomness (for tests): ``{"rs_u": u}``, the
     systematic scheme's uniform, and ``{"move": [...]}``, the move's
     draws per chain step.
+
+    Under a :mod:`particles_tpu_torch.distctx` context ``N`` is the rank's
+    share of the starting points, N/D: the ring of ``scheme`` (another
+    scheme raises ``NotImplementedError``) serves them from the rank's
+    N0/D particles, with ``gen``'s shared uniforms; the move and the
+    model draw from the rank's generator.
     """
     draws = {} if draws is None else draws
+    ctx = distctx.current()
+    mgen = _model_gen(gen)
     X, lw = carry.X, carry.lw
     N0 = X.N
     wgts = rs.Weights(lw)
     view = core.StepView(fk=fk, t=t, X=X, Xp=X, A=None, wgts=wgts, aux=wgts,
-                         rs_flag=None, logLt=carry.logLt, loglt=None, N=N,
-                         ESSrmin=ESSrmin, gen=gen)
+                         rs_flag=None, logLt=carry.logLt, loglt=None,
+                         N=_gN(N), ESSrmin=ESSrmin, gen=mgen)
     if getattr(fk, "always_resample", False):
         rs_flag = True
     else:
         rs_flag = bool(fk.time_to_resample(view))   # the step's host sync
     if rs_flag:
         Xc = X.with_shared(**fk.move.calibrate(wgts.W, X))
-        if "rs_u" in draws:
+        if ctx is not None:
+            Xres = _ring_subset(Xc, scheme, gen, wgts.W, N * ctx.D)
+        elif "rs_u" in draws:
             if scheme != "systematic":
                 raise ValueError("draws['rs_u'] replays the systematic "
                                  "scheme's uniform only")
-            z = ops.systematic_z_fused(wgts.W, draws["rs_u"], N)
+            Xres = Xc.subset_by_z(
+                ops.systematic_z_fused(wgts.W, draws["rs_u"], N), N)
         else:
-            z = rs.resampling_z(scheme, gen, wgts.W, N)
-        Xres = Xc.subset_by_z(z, N)
-        X = fk.move(gen, Xres, fk.move_target(t, Xc), draws=draws.get("move"))
+            Xres = Xc.subset_by_z(rs.resampling_z(scheme, gen, wgts.W, N), N)
+        X = fk.move(mgen, Xres, fk.move_target(t, Xc),
+                    draws=draws.get("move"))
         lw = torch.zeros(N0, dtype=lw.dtype, device=lw.device)
-    G, X = fk.logG_and_update(t, X, gen)
+    G, X = fk.logG_and_update(t, X, mgen)
     new_wgts = rs.Weights(lw + G)
     if rs_flag:
         loglt = new_wgts.log_mean
@@ -1118,7 +1219,7 @@ def _sampler_step(fk, gen, carry, t, N, scheme, ESSrmin, draws=None):
     logLt = carry.logLt + loglt
     view = core.StepView(fk=fk, t=t, X=X, Xp=X, A=None, wgts=new_wgts,
                          aux=wgts, rs_flag=rs_flag, logLt=logLt, loglt=loglt,
-                         N=N, ESSrmin=ESSrmin, gen=gen)
+                         N=_gN(N), ESSrmin=ESSrmin, gen=mgen)
     carry = core._Carry(X=X, lw=new_wgts.lw, logLt=logLt,
                         log_mean_w=new_wgts.log_mean)
     return carry, view
@@ -1167,23 +1268,75 @@ class SamplerHistory:
             self.times.append(t)
 
 
+def _gather_rows(a, P, ctx):
+    """The global (N0, ...) tensor of the ranks' (N0/D, ...) slices ``a``
+    in the single-device order: the ranks' blocks joined, each a
+    waste-free sampler's (P, M/D) chain-position-major block interleaved
+    into (P, M), so that chain m is the same starting point's chain as on
+    one device."""
+    g = comm.all_gather(a, ctx.group)
+    if P == 1:
+        return g
+    tail = tuple(a.shape[1:])
+    return (g.reshape((ctx.D, P, -1) + tail).transpose(0, 1)
+            .reshape((-1,) + tail))
+
+
+def _global_view(view, fk, ctx):
+    """The step's view on the global particles and log-weights (one
+    all-gather a leaf and one of lw), with ``Weights`` computed on one
+    device: what a collector that is not ``dist_safe``, and the history,
+    read under sharding.  Evaluate it, and what reads it, under
+    ``distctx.local_context()``."""
+    P = fk.len_chain if fk.wastefree else 1
+    leaves, unflatten = view.X._leaves()
+    X = ThetaParticles(shared=dict(view.X.shared), **unflatten(
+        [_gather_rows(a, P, ctx) for a in leaves]))
+    lw = _gather_rows(view.wgts.lw, P, ctx)
+    with distctx.local_context():
+        wgts = rs.Weights(lw)
+    return view._replace(X=X, Xp=X, wgts=wgts, aux=wgts)
+
+
+def _needs_global_view(smc):
+    """Under a context: whether the history or a collector that is not
+    ``dist_safe`` reads the step (then the step's particles are gathered
+    once)."""
+    cols = [] if smc.summaries is None else smc.summaries._collectors
+    return (smc.hist_option not in (False, None)
+            or any(not c.dist_safe for c in cols))
+
+
 def sampler_next(smc):
     """One step of an SMC sampler; ``core.SMC.__next__`` calls it when
     ``fk.is_sampler``.  Collectors run on the step's view afterwards, as
-    for a filter (host-side ones among them)."""
+    for a filter (host-side ones among them).
+
+    Under a :mod:`particles_tpu_torch.distctx` context ``smc`` holds the
+    rank's slice.  The ``dist_safe`` collectors read the step's global
+    reductions; when the history or another collector is asked for, the
+    step's particles and log-weights are gathered once, and they and the
+    history read the global arrays (in the single-device order) on every
+    rank."""
     fk = smc.fk
+    ctx = distctx.current()
     if smc.t == 0:
         carry, view = _sampler_step0(fk, smc.gen, smc.N, smc.ESSrmin)
-        if smc.summaries is not None:
-            smc._col_states, outs = smc.summaries.init_step(view)
     else:
         if hasattr(fk, "maybe_exchange"):
             fk.maybe_exchange(smc)
         carry, view = _sampler_step(fk, smc.gen, smc._carry, smc.t, smc.N,
                                     smc.resampling, smc.ESSrmin)
-        if smc.summaries is not None:
-            smc._col_states, outs = smc.summaries.step(view, smc._col_states)
+    gathered = ctx is not None and _needs_global_view(smc)
+    rview = _global_view(view, fk, ctx) if gathered else view
     if smc.summaries is not None:
+        with (distctx.local_context() if gathered
+              else contextlib.nullcontext()):
+            if smc.t == 0:
+                smc._col_states, outs = smc.summaries.init_step(rview)
+            else:
+                smc._col_states, outs = smc.summaries.step(
+                    rview, smc._col_states)
         smc.summaries.append_step(outs)
     smc._carry = carry
     smc.X, smc.Xp, smc.A = view.X, view.Xp, view.A
@@ -1193,7 +1346,7 @@ def sampler_next(smc):
     if smc.hist_option is not False and smc.hist_option is not None:
         if smc.t == 0:
             smc.hist = SamplerHistory(smc.hist_option)
-        smc.hist.save_step(smc.t, view.X, view.wgts)
+        smc.hist.save_step(smc.t, rview.X, rview.wgts)
     if smc.verbose:
         print(fk.summary_format(smc))
     smc.t += 1

@@ -71,7 +71,9 @@ PORTED = {
         "CSMC", "GenericGibbs", "ParticleGibbs",
     ],
     "particles_tpu.parallel": ["ring_systematic_resample",
-                               "run_shardmap_smc", "sharded_backward_mcmc"],
+                               "run_shardmap_smc", "sharded_backward_mcmc",
+                               "make_mesh", "particle_constrain",
+                               "run_sharded_smc", "run_sharded_multismc"],
     "particles_tpu.nested": [
         "NestedParticles", "NestedSampling", "Nested_RWmoves",
         "NestedSamplingSMC", "MeanCovTracker", "unif_minus_one",
@@ -99,11 +101,8 @@ PORTED = {
     ],
 }
 
-# ROADMAP A.11b: the GSPMD entry points (particles_tpu/parallel/sharded.py)
-MISSING = {
-    "particles_tpu.parallel": ["make_mesh", "particle_constrain",
-                               "run_sharded_smc", "run_sharded_multismc"],
-}
+# every name is ported
+MISSING = {}
 
 
 def _port_module(name):

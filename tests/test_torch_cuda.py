@@ -550,10 +550,10 @@ def test_every_scheme_on_the_card(dev):
     assert fk.data.device.type == "cuda"
     expected = {"systematic": {"systematic_z", "repeat_by_z"},
                 "stratified": {"normalised_cumsum", "repeat_by_z"},
-                "multinomial": {"normalised_cumsum", "merge_rank_counts",
-                                "repeat_by_z"},
-                "residual": {"normalised_cumsum", "merge_rank_counts",
-                             "repeat_by_z"},
+                "multinomial": {"running_max", "normalised_cumsum",
+                                "merge_rank_counts", "repeat_by_z"},
+                "residual": {"running_max", "normalised_cumsum",
+                             "merge_rank_counts", "repeat_by_z"},
                 "ssp": {"repeat_by_z"},
                 "killing": {"normalised_cumsum", "repeat_by_su"}}
     seen = []
@@ -1040,8 +1040,9 @@ def test_pmmh_chain_loop_syncs_never(dev):
 
 
 def test_csmc_steps_sync_never(dev):
-    """CSMC steps with synchronising operations made errors: B3, B5 and B2
-    once a step (the multinomial ancestors), particle 0 pinned."""
+    """CSMC steps with synchronising operations made errors: B6 (the
+    sorted spacings), B3, B5 and B2 once a step (the multinomial
+    ancestors), particle 0 pinned."""
     from particles_tpu_torch import mcmc
 
     T, N = 20, 2 ** 12
@@ -1057,8 +1058,8 @@ def test_csmc_steps_sync_never(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     for k, f in ops.KERNELS.items():
-        want = T - 1 if k in ("normalised_cumsum", "merge_rank_counts",
-                              "repeat_by_z") else 0
+        want = T - 1 if k in ("running_max", "normalised_cumsum",
+                              "merge_rank_counts", "repeat_by_z") else 0
         assert f.launches - before[k] == want, k
     assert torch.equal(cpf.hist.X[:, 0], xstar)
     assert bool((cpf.hist.A[:, 0] == 0).all())

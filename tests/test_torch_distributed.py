@@ -5,8 +5,10 @@ the port's single-device engine.
 One module-scoped launch of D = 4 ranks runs every scenario of
 ``torch_dist_ranks.run_all`` (the rings over the 4 ranks and over a group
 of two of them, every filter, scheme, collector and history, sharded
-FFBS, the collective counts and the documented raises) and returns plain
-arrays, so that each assertion below is its own test.  The inputs are numpy arrays made from
+FFBS, the collective counts, the documented raises, distributed SQMC and
+its sort, the sharded samplers, NS-SMC and SMC², PMMH's chains across the
+ranks and the mesh entry points) and returns plain arrays, so that each
+assertion below is its own test.  The inputs are numpy arrays made from
 seeds; the JAX side runs in this process.
 
 Tolerances.  The rings: bit for bit against JAX's on weights j 2^-12
@@ -16,7 +18,13 @@ on Dirichlet weights each output served exactly once (a valid ancestor,
 sorted) and the z-forms within 1 of JAX's.  The filters: the mean logLt
 of three seeds within the tolerances of ``tests/test_parallel.py`` of the
 Kalman value, and within 0.6 of JAX's ``run_shardmap_smc`` at the same N,
-D and T.
+D and T.  Distributed SQMC: its sort, keys and reorder equal JAX's
+``parallel.dqmc`` bit for bit on the same arrays (the keys on points whose
+sums are exact and which lie away from every cell boundary); its logLt
+within JAX's tolerances (tests/test_parallel.py) of Kalman, and within
+1e-3 of the port's single-device SQMC at the same seed.  The samplers:
+the tolerances of ``TestShardedSamplers`` and ``TestShardedSMC2`` against
+the exact evidence and the Kalman grid.
 """
 
 import fcntl
@@ -32,6 +40,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
+from particles_tpu import hilbert as jhilbert
 from particles_tpu import kalman as jkalman
 from particles_tpu import parallel as jparallel
 from particles_tpu import state_space_models as jssms
@@ -39,12 +48,15 @@ from particles_tpu.parallel import distributed as jdist
 from particles_tpu.parallel import dqmc as jdqmc
 
 import torch_dist_ranks as ranks
-from particles_tpu_torch import convert, ops
+from particles_tpu_torch import convert, hilbert, ops
 from particles_tpu_torch import resampling as trs
+from particles_tpu_torch import nested as tnested
+from particles_tpu_torch import smc_samplers as tssp
 from particles_tpu_torch import state_space_models as tssms
 from particles_tpu_torch import kalman as tkalman
 from particles_tpu_torch.core import SMC
 from particles_tpu_torch import collectors as tcol
+from particles_tpu_torch.parallel import dqmc as tdqmc
 from particles_tpu_torch.parallel import launch
 
 N, T = 4096, 25
@@ -92,6 +104,31 @@ def _exact_weights(rng, n):
     return lw_of[j - 1], (j * 2.0 ** -12).astype(np.float32)
 
 
+def _exact_sum_points(n, seed=2):
+    """(n, 2) float32 points k 2^-8, |k| <= 60, so that every sum of x
+    and of x^2 over them is exact in float32 (the two packages' moments
+    agree bit for bit); many points repeat, so that keys tie.  At n = N
+    and this seed no point lies within 2^-12 of a cell's edge."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-60, 61, (n, 2)) * 2.0 ** -8).astype(np.float32)
+
+
+def _conjugate(T=40):
+    """The data and exact evidence of ``TestShardedSamplers``'s model."""
+    rng = np.random.default_rng(0)
+    y = rng.normal(loc=0.7, size=T).astype(np.float32)
+    C = np.eye(T) + 4.0 * np.ones((T, T))
+    yv = y.astype(np.float64)
+    exact = (-0.5 * T * np.log(2 * np.pi) - 0.5 * np.linalg.slogdet(C)[1]
+             - 0.5 * yv @ np.linalg.solve(C, yv))
+    return y, float(exact), 4.0 * float(yv.sum()) / (4.0 * T + 1.0)
+
+
+def _lg_fixed_y(T):
+    true = tkalman.LinearGauss(rho=0.8, sigmaX=1.0, sigmaY=0.5)
+    return true.simulate(torch.Generator().manual_seed(0), T)[1].numpy()
+
+
 def _inputs(engine, seed):
     rng = np.random.default_rng(seed)
     lw_exact, w_exact = _exact_weights(rng, N)
@@ -115,7 +152,17 @@ def _inputs(engine, seed):
             y_smooth=_simulate(0.9, 0.3, T_SMOOTH, 7), N_smooth=N_SMOOTH,
             M_smooth=M_SMOOTH, replicates=200,
             w_multi=trs.exp_and_normalise(torch.from_numpy(
-                rng.normal(size=512).astype(np.float32) * 1.5)).numpy())
+                rng.normal(size=512).astype(np.float32) * 1.5)).numpy(),
+            sort_keys=rng.integers(0, 50, N).astype(np.int32),
+            sort_idx=np.arange(N, dtype=np.int32),
+            sort_x=rng.normal(size=N).astype(np.float32),
+            hx=_exact_sum_points(N),
+            hlw=rng.normal(size=N).astype(np.float32),
+            y_mv=tkalman.MVLinearGauss_Guarniero_etal(
+                alpha=0.4, dx=3, device="cpu").simulate(
+                    torch.Generator().manual_seed(7), 15)[1].numpy(),
+            y_conj=_conjugate()[0], y_smc2=_lg_fixed_y(12),
+            y_pmmh=_lg_fixed_y(25))
     return inp
 
 
@@ -160,6 +207,32 @@ def _jax_rings(inp, D):
     return rings
 
 
+def _jax_dqmc(inp):
+    """JAX's distributed sort, Hilbert keys and reorders on the same
+    arrays, in one shard_map program over 4 devices."""
+    D = 4
+    mesh = jparallel.make_mesh(D, ("particles",))
+    sh = P("particles")
+
+    def local(k, idx, x, hx, hlw):
+        (ks,), (ids, xs) = jdqmc.dist_sort_with((k,), (idx, x), "particles",
+                                                D)
+        keys = jdqmc._dist_hilbert_keys(hx, "particles", D)
+        assert len(keys) == 1          # sort_nbits keeps d nbits <= 32
+        X, (lw, ix) = jdqmc.dist_qmc_reorder(hx, (hlw, idx), "particles", D)
+        X1, (ix1,) = jdqmc.dist_qmc_reorder(x, (idx,), "particles", D)
+        return ks, ids, xs, keys[0], X, lw, ix, X1, ix1
+
+    f = jdist._shard_map(local, mesh, in_specs=(sh,) * 5,
+                         out_specs=(sh,) * 9)
+    with mesh:
+        out = [np.asarray(a) for a in jax.jit(f)(
+            inp["sort_keys"], inp["sort_idx"], inp["sort_x"], inp["hx"],
+            inp["hlw"])]
+    return {"sort": tuple(out[:3]), "keys": out[3],
+            "reorder": tuple(out[4:7]), "reorder_1d": tuple(out[7:])}
+
+
 def _jax_filters(y):
     """JAX's ``run_shardmap_smc`` at the same N, D = 4 and T: logLt by
     filter."""
@@ -180,7 +253,8 @@ def _scenarios():
         launched = pool.submit(launch.spawn, ranks.run_all, 4,
                                args=(inputs,), timeout=240)
         out = {"jax_rings": {D: _jax_rings(inputs[D], D) for D in inputs},
-               "jax_filters": _jax_filters(inputs[4]["y"])}
+               "jax_filters": _jax_filters(inputs[4]["y"]),
+               "jax_dqmc": _jax_dqmc(inputs[4])}
         results = launched.result()
     out[4] = (inputs[4], [dict(r, rings=r["rings"][4]) for r in results])
     out[2] = (inputs[2], [{"rings": r["rings"][2]} for r in results[:2]])
@@ -405,11 +479,14 @@ def test_rolling_and_partial_histories(run4):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("qmc", "NotImplementedError: .*A.11b"),
+    ("qmc_not_a_power_of_two",
+     "NotImplementedError: .*power of two \\(got N=768\\)"),
     ("ssp", "NotImplementedError: .*resampling scheme 'ssp'"),
     ("collector", "NotImplementedError: .*Online_smooth_naive"),
     ("indivisible", "ValueError: N=514 not divisible"),
-    ("sampler", "NotImplementedError: .*samplers.*A.11b"),
+    ("sampler_ssp", "NotImplementedError: .*resampling scheme 'ssp'"),
+    ("nchains", "ValueError: nchains=6 not divisible by mesh axis None "
+                "size 4"),
 ])
 def test_documented_raises(run4, case, match):
     import re
@@ -433,7 +510,8 @@ def test_budget_without_resampling(run4):
     flags = run4[1][0]["engine"]["GuidedPF_0"]["rs_flags"]
     assert not flags.any()
     assert _calls(run4, "GuidedPF_0") == {
-        "pmax": T, "psum": T, "all_gather": 0, "ring_shift": 0}
+        "pmax": T, "psum": T, "all_gather": 0, "ring_shift": 0,
+        "exchange": 0}
 
 
 def test_budget_at_resampling_steps(run4):
@@ -442,7 +520,7 @@ def test_budget_at_resampling_steps(run4):
     D = 4
     assert _calls(run4, "Bootstrap_always") == {
         "pmax": T, "psum": T, "all_gather": T - 1,
-        "ring_shift": (D - 1) * (T - 1)}
+        "ring_shift": (D - 1) * (T - 1), "exchange": 0}
 
 
 def test_budget_apf_adds_no_gather_or_shift(run4):
@@ -453,7 +531,7 @@ def test_budget_apf_adds_no_gather_or_shift(run4):
     for name in ("AuxiliaryPF", "AuxiliaryBootstrap"):
         assert _calls(run4, f"{name}_always") == {
             "pmax": 2 * T - 1, "psum": 2 * T - 1, "all_gather": T - 1,
-            "ring_shift": (D - 1) * (T - 1)}, name
+            "ring_shift": (D - 1) * (T - 1), "exchange": 0}, name
 
 
 def test_budget_sharded_ffbs(run4):
@@ -463,7 +541,7 @@ def test_budget_sharded_ffbs(run4):
     L = 1
     assert all(c == {"pmax": 0, "psum": 0,
                      "all_gather": (L + 1) + (T_SMOOTH - 1) * (L + 2),
-                     "ring_shift": 0} for c in calls), calls
+                     "ring_shift": 0, "exchange": 0} for c in calls), calls
 
 
 def test_sharded_ffbs_matches_kalman_and_single_device(run4):
@@ -498,3 +576,350 @@ def test_multinomial_ring_is_unbiased(run4):
     NW = n * inp["w_multi"].astype(np.float64)
     se = np.sqrt(np.maximum(NW, 0.05) / R)
     assert np.all(np.abs(counts.mean(0) - NW) < 6 * se + 0.1)
+
+
+# -- distributed SQMC: the sort, the keys, the reorder -----------------------
+
+@pytest.fixture(scope="module")
+def jax_dqmc(runs):
+    return runs["jax_dqmc"]
+
+
+def _dqmc_part(results, name):
+    k = len(results[0]["dqmc"][name])
+    return tuple(_join(results, lambda r, i=i: r["dqmc"][name][i])
+                 for i in range(k))
+
+
+def test_dist_sort_matches_jax_and_one_stable_sort(run4, jax_dqmc):
+    """Integer keys with many ties: the port's sorted keys and payloads
+    equal JAX's bit for bit, and both are one stable sort of the global
+    arrays."""
+    inp, results = run4
+    got = _dqmc_part(results, "sort")
+    for g, w in zip(got, jax_dqmc["sort"]):
+        np.testing.assert_array_equal(g, w)
+    order = np.argsort(inp["sort_keys"], kind="stable")
+    np.testing.assert_array_equal(got[0], inp["sort_keys"][order])
+    np.testing.assert_array_equal(got[1], inp["sort_idx"][order])
+    np.testing.assert_array_equal(got[2], inp["sort_x"][order])
+
+
+def test_dist_sort_exchanges_once_a_paired_round(run4):
+    """One exchange in each round a rank has a partner, and no other
+    collective: ranks 0 and 3 sit out the odd rounds."""
+    D = 4
+    for d, r in enumerate(run4[1]):
+        paired = sum(tdqmc._round_pairing(D, rd)[0][d] is not None
+                     for rd in range(D))
+        assert paired == (4 if d in (1, 2) else 2)
+        assert r["dqmc"]["sort_calls"] == {
+            "pmax": 0, "psum": 0, "all_gather": 0, "ring_shift": 0,
+            "exchange": paired}, (d, r["dqmc"]["sort_calls"])
+
+
+def test_dist_hilbert_keys_match_jax_and_single_device(run4, jax_dqmc):
+    """The rank's keys: equal to JAX's one-word keys bit for bit (tied
+    keys included), and to the single-device keys of the joined points
+    on the same global mean and sd."""
+    inp, results = run4
+    hx = inp["hx"]
+    keys = _join(results, lambda r: r["dqmc"]["keys"][0])
+    m, sd = results[0]["dqmc"]["keys"][1:]
+    for r in results[1:]:
+        np.testing.assert_array_equal(r["dqmc"]["keys"][1], m)
+        np.testing.assert_array_equal(r["dqmc"]["keys"][2], sd)
+    # the moments are exact here, and no point lies near a cell boundary,
+    # so the two packages' logistic values cannot fall in different cells
+    nbits = hilbert.sort_nbits(N, 2)
+    x64 = hx.astype(np.float64)
+    g = (1 << nbits) / (1 + np.exp(-(x64 - x64.mean(0)) / x64.std(0)))
+    assert np.abs(g - np.round(g)).min() > 2.0 ** (nbits - 20)
+    np.testing.assert_array_equal(m, hx.mean(0, dtype=np.float64))
+    assert len(np.unique(keys)) < N - 400           # many ties
+    np.testing.assert_array_equal(keys, jax_dqmc["keys"].astype(np.int64))
+    single = hilbert.hilbert_index(hilbert._integerise(
+        torch.from_numpy(hx), torch.from_numpy(m), torch.from_numpy(sd),
+        nbits), nbits).numpy()
+    np.testing.assert_array_equal(keys, single)
+    lo = jhilbert.hilbert_index(
+        jhilbert._standardise_and_integerise(jnp.asarray(hx), nbits),
+        nbits)[-1]
+    np.testing.assert_array_equal(keys, np.asarray(lo).astype(np.int64))
+
+
+@pytest.mark.parametrize("form", ["reorder", "reorder_1d"])
+def test_dist_qmc_reorder_matches_jax(run4, jax_dqmc, form):
+    got = _dqmc_part(run4[1], form)
+    for g, w in zip(got, jax_dqmc[form]):
+        np.testing.assert_array_equal(g, w.astype(g.dtype))
+
+
+# -- distributed SQMC: the filter ---------------------------------------------
+
+def _sqmc(run4, tag):
+    recs = [r["sqmc"][tag] for r in run4[1]]
+    assert len({rec["logLt"] for rec in recs}) == 1      # replicated
+    return recs[0]
+
+
+@pytest.mark.parametrize("name,tol", [("Bootstrap", 0.3), ("GuidedPF", 0.35),
+                                      ("AuxiliaryPF", 0.35)])
+def test_sqmc_matches_kalman(run4, kalman_logLt, name, tol):
+    """tests/test_parallel.py's tolerances, on the mean of three seeds;
+    every step resamples, on every rank alike."""
+    recs = [_sqmc(run4, f"{name}_{s}") for s in ranks.SEEDS]
+    port = np.mean([rec["logLt"] for rec in recs])
+    assert abs(port - kalman_logLt) < tol, (port, kalman_logLt)
+    for rec in recs:
+        assert rec["rs_flags"][1:].all()
+    for r in run4[1][1:]:
+        np.testing.assert_array_equal(r["sqmc"][f"{name}_0"]["ESSs"],
+                                      recs[0]["ESSs"])
+
+
+def test_sqmc_is_the_single_device_sqmc(run4):
+    """The same seed: the distributed run takes its rows of the same
+    Sobol sets as the single-device run, so the two filters agree up to
+    float association (tests/test_parallel.py::test_sqmc_matches_single_device)."""
+    inp, _ = run4
+    rec = _sqmc(run4, "same_seed")
+    ssm = tkalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
+    pf = SMC(fk=tssms.Bootstrap(ssm=ssm, data=inp["y"], device="cpu"),
+             N=ranks.SQMC_N, seed=11, qmc=True)
+    pf.run()
+    assert abs(rec["logLt"] - float(pf.logLt)) < 1e-3, (rec["logLt"],
+                                                         float(pf.logLt))
+    np.testing.assert_allclose(rec["ESSs"], pf.summaries.ESSs.numpy(),
+                               rtol=1e-3)
+
+
+def test_sqmc_collective_budget(run4):
+    """A step: the weights' max and sums twice (before and after the
+    move), the merge ring's all-gather and D - 1 shifts, and the Hilbert
+    sort's exchanges (one a paired round, D rounds a sort, one sort a
+    step); step 0 one pair of all-reduces and one sort."""
+    D, T_ = 4, T
+    for d, r in enumerate(run4[1]):
+        paired = 4 if d in (1, 2) else 2
+        assert r["sqmc"]["Bootstrap_0"]["calls"] == {
+            "pmax": 2 * T_ - 1, "psum": 2 * T_ - 1, "all_gather": T_ - 1,
+            "ring_shift": (D - 1) * (T_ - 1), "exchange": paired * T_}
+
+
+def test_sqmc_history_global_genealogy(run4):
+    """tests/test_parallel.py::test_sqmc_history_global_genealogy: global
+    ancestors, Hilbert-ordered frames, and the joined history feeds both
+    FFBS-MCMC and QMC FFBS."""
+    inp, results = run4
+    h = [r["sqmc"]["hist"] for r in results]
+    assert all(x["hilbert_ordered"] for x in h)
+    X, A, lw = (_join(results, lambda r, k=k: r["sqmc"]["hist"][k], axis=1)
+                for k in ("X", "A", "lw"))
+    assert A.shape == (T, ranks.SQMC_N) and A.min() >= 0
+    assert A.max() < ranks.SQMC_N
+    for t in range(T):
+        assert (np.diff(X[t]) >= 0).all()       # 1-d: the global order
+    ssm = tkalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
+    fk = tssms.Bootstrap(ssm=ssm, data=inp["y"], device="cpu")
+    hist = convert.history_from_numpy(fk, X, A, lw, device="cpu")
+    hist.hilbert_ordered = True
+    gen = torch.Generator().manual_seed(0)
+    assert torch.isfinite(hist.backward_sampling_mcmc(gen, 4)).all()
+    assert torch.isfinite(hist.backward_sampling_qmc(gen, 4)).all()
+
+
+def test_sqmc_multivariate_matches_kalman(run4):
+    """d = 3: the distributed Hilbert keys (one fused all-reduce of the
+    moments, then the odd-even merge) against the exact evidence."""
+    inp, results = run4
+    mv = tkalman.MVLinearGauss_Guarniero_etal(alpha=0.4, dx=3, device="cpu")
+    kf = tkalman.Kalman(ssm=mv, data=torch.from_numpy(inp["y_mv"]).double())
+    rec = _sqmc(run4, "mv")
+    assert abs(rec["logLt"] - float(kf.logLt)) < 0.5, (rec["logLt"],
+                                                       float(kf.logLt))
+    assert results[0]["sqmc"]["mv"]["X"].shape == (ranks.SQMC_N // 4, 3)
+
+
+# -- the sharded samplers, NS-SMC and SMC² ------------------------------------
+
+def _samplers(run4, tag):
+    recs = [r["samplers"][tag] for r in run4[1]]
+    for rec in recs[1:]:
+        for k in ("logLt", "log_evid", "T"):
+            if k in rec:
+                assert rec[k] == recs[0][k], (tag, k)
+    return recs[0]
+
+
+def test_sharded_ibis_matches_exact_evidence_and_collectors(run4):
+    """TestShardedSamplers.test_ibis_matches_exact_evidence_and_collectors:
+    Moments global, a host-side collector and the history on the
+    gathered particles, the rank's own slice returned."""
+    _, exact, post_mean = _conjugate()
+    rec = _samplers(run4, "ibis")
+    assert abs(rec["logLt"] - exact) < 1.0, (rec["logLt"], exact)
+    assert abs(rec["mean"] - post_mean) < 0.2, (rec["mean"], post_mean)
+    assert rec["hist_T"] == 40 and len(rec["ESSs"]) == 40
+    assert rec["hist_N"] == 10 * ranks.SAMPLER_N          # global N0
+    assert rec["X_N"] == 10 * ranks.SAMPLER_N // 4       # the rank's
+    assert len(rec["var_logLt"]) == 40
+    assert np.isfinite(np.asarray(rec["var_logLt"], np.float64)).all()
+
+
+def test_sharded_adaptive_tempering_matches_exact_evidence(run4):
+    _, exact, _ = _conjugate()
+    recs = [_samplers(run4, f"tempering_{s}") for s in ranks.SEEDS]
+    assert abs(np.mean([r["logLt"] for r in recs]) - exact) < 0.8
+    assert all(r["exponent"] >= 1.0 for r in recs)
+    # the step count of the single-device engine
+    inp = run4[0]
+    model = ranks.GaussTarget(data=inp["y_conj"], prior=ranks.dists.StructDist(
+        {"m": ranks.dists.Normal(scale=2.0)}), device="cpu")
+    pf = SMC(fk=tssp.AdaptiveTempering(model=model, len_chain=10),
+             N=ranks.SAMPLER_N, seed=0)
+    pf.run()
+    steps = [r["T"] for r in recs]
+    assert pf.t in steps or abs(pf.t - steps[0]) <= 1, (pf.t, steps)
+
+
+@pytest.mark.parametrize("scheme", ["stratified", "multinomial"])
+def test_sharded_sampler_rings(run4, scheme):
+    _, exact, _ = _conjugate()
+    rec = _samplers(run4, f"tempering_{scheme}")
+    assert abs(rec["logLt"] - exact) < 1.2, (scheme, rec["logLt"], exact)
+
+
+def test_sharded_ns_smc_matches_exact_evidence(run4):
+    """NS-SMC's level and evidence on one gathered llik: the mean of three
+    seeds within 1.0 of exact, a level count near the single device's."""
+    _, exact, _ = _conjugate()
+    recs = [_samplers(run4, f"ns_{s}") for s in ranks.SEEDS]
+    assert abs(np.mean([r["log_evid"] for r in recs]) - exact) < 1.0
+    assert all(np.isinf(r["lt"]) for r in recs)
+    inp = run4[0]
+    model = ranks.GaussTarget(data=inp["y_conj"], prior=ranks.dists.StructDist(
+        {"m": ranks.dists.Normal(scale=2.0)}), device="cpu")
+    pf = SMC(fk=tnested.NestedSamplingSMC(model=model, len_chain=5,
+                                          ESSrmin=0.3, eps=0.01),
+             N=ranks.SAMPLER_N, seed=0)
+    pf.run()
+    steps = np.mean([r["T"] for r in recs])
+    assert abs(pf.t - steps) <= max(3, 0.3 * pf.t), (pf.t, steps)
+
+
+@pytest.fixture(scope="module")
+def smc2_oracle(run4):
+    """The Kalman grid evidence and posterior mean of rho at T = 12."""
+    from scipy.special import logsumexp
+
+    y = run4[0]["y_smc2"]
+    grid = np.linspace(-0.985, 0.985, 80)
+    lls = np.array([float(tkalman.Kalman(
+        ssm=ranks.LGfixed(rho=float(r)), data=torch.from_numpy(y).double()
+    ).logLt) for r in grid])
+    ev = logsumexp(lls) + np.log((grid[1] - grid[0]) / (2 * 0.99))
+    post = np.exp(lls - lls.max())
+    return float(ev), float(np.sum(post * grid) / post.sum())
+
+
+def test_sharded_smc2_matches_the_kalman_grid(run4, smc2_oracle):
+    """TestShardedSMC2: the θ axis sharded, each rank's inner filters its
+    own; 4 seeds, the mean evidence within 0.4 and the posterior mean
+    within 0.25 of the grid."""
+    exact_ev, exact_mean = smc2_oracle
+    results = run4[1]
+    lls, means = [], []
+    for s in range(4):
+        rec = _samplers(run4, f"smc2_{s}")
+        assert rec["T"] == 12
+        assert rec["xs"] == (ranks.SMC2_NTHETA // 4, ranks.SMC2_NX)
+        lw = _join(results, lambda r, s=s: r["samplers"][f"smc2_{s}"]["lw"])
+        rho = _join(results, lambda r, s=s: r["samplers"][f"smc2_{s}"]["rho"])
+        W = np.exp(lw - lw.max())
+        lls.append(rec["logLt"])
+        means.append(float(np.sum(W * rho) / W.sum()))
+    assert abs(np.mean(lls) - exact_ev) < 0.4, (np.mean(lls), exact_ev)
+    assert abs(np.mean(means) - exact_mean) < 0.25, (means, exact_mean)
+
+
+# -- chains across ranks --------------------------------------------------------
+
+def test_pmmh_chains_across_ranks(run4):
+    """The 8 chains split 2 a rank; every rank ends with the whole chain,
+    whose pooled mean lies within 0.15 of the Kalman grid posterior mean
+    (the single-device chains' test, tests/test_torch_mcmc.py)."""
+    y = run4[0]["y_pmmh"]
+    results = run4[1]
+    rho = results[0]["chains"]["rho"]
+    assert rho.shape == (ranks.PMMH_NITER, ranks.PMMH_CHAINS)
+    for r in results[1:]:
+        np.testing.assert_array_equal(r["chains"]["rho"], rho)
+        np.testing.assert_array_equal(r["chains"]["nacc"],
+                                      results[0]["chains"]["nacc"])
+    grid = np.linspace(-0.985, 0.985, 100)
+    lls = np.array([float(tkalman.Kalman(
+        ssm=ranks.LGfixed(rho=float(g)), data=torch.from_numpy(y).double()
+    ).logLt) for g in grid])
+    post = np.exp(lls - lls.max())
+    post /= post.sum()
+    post_mean = float(np.sum(post * grid))
+    post_sd = float(np.sqrt(np.sum(post * grid ** 2) - post_mean ** 2))
+    pooled = rho[50:].ravel()
+    assert abs(pooled.mean() - post_mean) < 0.15, (pooled.mean(), post_mean)
+    assert 0.3 < pooled.std() / post_sd < 3.0
+    assert (results[0]["chains"]["nacc"] > 10).all()
+    # the ranks' chains start apart: each rank draws from its own stream
+    assert len({float(v) for v in rho[0]}) == ranks.PMMH_CHAINS
+
+
+# -- the mesh entry points ------------------------------------------------------
+
+def _meshes(run4, tag):
+    recs = [r["meshes"][tag] for r in run4[1]]
+    assert len({rec["logLt"] for rec in recs}) == 1
+    return recs[0]
+
+
+@pytest.mark.parametrize("scheme", ["ssp", "residual", "killing"])
+def test_run_sharded_smc_schemes_without_a_ring(run4, kalman_logLt, scheme):
+    """A (1, 4) mesh: the scheme's z-form of the gathered weights on every
+    rank, then the z ring; within 0.6 of Kalman, the ancestors global
+    and sorted, and one all-gather and D - 1 shifts a resampling step."""
+    D = 4
+    seeds = ranks.SEEDS if scheme == "ssp" else (0,)
+    port = np.mean([_meshes(run4, f"{scheme}_{s}")["logLt"] for s in seeds])
+    assert abs(port - kalman_logLt) < 0.6, (scheme, port, kalman_logLt)
+    rec = _meshes(run4, f"{scheme}_0")
+    n_rs = int(rec["rs_flags"].sum())
+    assert n_rs > 0
+    assert rec["calls"] == {"pmax": T, "psum": T, "all_gather": n_rs,
+                            "ring_shift": (D - 1) * n_rs, "exchange": 0}
+    A = _join(run4[1], lambda r: r["meshes"][f"{scheme}_0"]["A"], axis=1)
+    assert A.shape == (T, N) and A.min() >= 0 and A.max() < N
+    for t in np.flatnonzero(rec["rs_flags"]):
+        assert (np.diff(A[t]) >= 0).all()
+
+
+def test_run_sharded_smc_qmc(run4, kalman_logLt):
+    vals = {r["meshes"]["qmc"] for r in run4[1]}
+    assert len(vals) == 1
+    assert abs(vals.pop() - kalman_logLt) < 0.3
+
+
+def test_run_sharded_multismc_on_a_2x2_mesh(run4, kalman_logLt):
+    """Rows of the mesh take two runs each, each over the row's two
+    ranks: the (4,) logLts on every rank, each rank's (2, N/2) block of
+    log-weights."""
+    results = run4[1]
+    logLts = results[0]["meshes"]["multi"]["logLts"]
+    assert logLts.shape == (4,) and len(set(logLts.tolist())) == 4
+    for r in results:
+        np.testing.assert_array_equal(r["meshes"]["multi"]["logLts"],
+                                      logLts)
+        assert r["meshes"]["multi"]["lws"].shape == (2, N // 2)
+    assert np.abs(logLts - kalman_logLt).max() < 1.0, logLts
+
+
+def test_particle_constrain_keeps_the_slices(run4):
+    assert all(r["meshes"]["constrain"] for r in run4[1])

@@ -224,9 +224,16 @@ def test_multichain_conjugate_posterior_and_diagnostics():
 
 
 def test_mesh_raises_naming_the_roadmap_item():
+    """``mesh`` splits the chains over a mesh axis's ranks (held in
+    tests/test_torch_distributed.py::test_pmmh_chains_across_ranks); what
+    it cannot take raises ValueError: an axis with no mesh, and a given
+    generator (each rank makes its own from the seed)."""
     model, _ = _gm_model(4, 10)
-    with pytest.raises(NotImplementedError, match=r"A\.11b"):
-        mcmc.BasicRWHM(model=model, mesh=object())
+    with pytest.raises(ValueError, match="mesh_axis given without a mesh"):
+        mcmc.BasicRWHM(model=model, mesh_axis="chains")
+    with pytest.raises(ValueError, match="pass seed, not generator"):
+        mcmc.BasicRWHM(model=model, mesh=object(),
+                       generator=torch.Generator())
 
 
 # ---------------------------------------------------------------------------

@@ -14,14 +14,35 @@ import torch
 import torch.distributed as dist
 
 from particles_tpu_torch import collectors as col
-from particles_tpu_torch import convert, kalman, ops
+from particles_tpu_torch import convert, kalman, mcmc, nested, ops
 from particles_tpu_torch import smc_samplers as ssp
 from particles_tpu_torch import distributions as dists
 from particles_tpu_torch import state_space_models as ssms
-from particles_tpu_torch.parallel import comm, distributed, dqmc
+from particles_tpu_torch.parallel import comm, distributed, dqmc, sharded
 
 SEEDS = (0, 1, 2)
 FILTERS = ("Bootstrap", "GuidedPF", "AuxiliaryPF", "AuxiliaryBootstrap")
+SQMC_N, SMC2_NTHETA, SMC2_NX, SAMPLER_N = 1024, 152, 150, 128
+PMMH_CHAINS, PMMH_NITER, PMMH_NX = 8, 200, 100
+
+
+class LGfixed(kalman.LinearGauss):
+    """The fixed-sigma LinearGauss of SMC² and PMMH: rho is the parameter
+    (tests/test_parallel.py ``TestShardedSMC2``)."""
+
+    default_params = {"sigmaY": 0.5, "rho": 0.9, "sigmaX": 1.0,
+                      "sigma0": None}
+
+
+RHO_PRIOR = dists.StructDist({"rho": dists.Uniform(a=-0.99, b=0.99)})
+
+
+class GaussTarget(ssp.StaticModel):
+    """The conjugate Gaussian mean of ``TestShardedSamplers``: y_t ~ N(m,
+    1), m ~ N(0, 2^2)."""
+
+    def logpyt(self, theta, t):
+        return -0.5 * np.log(2 * np.pi) - 0.5 * (self.data[t] - theta["m"]) ** 2
 
 
 def _launches():
@@ -143,14 +164,20 @@ def _raises(device, inp):
 
     sampler = ssp.IBIS(model=Gauss(data=torch.zeros(5, device=device),
                                    prior=prior))
+    mesh = sharded.make_mesh(device_type=device.type)
     cases = {
-        "qmc": lambda: distributed.run_shardmap_smc(fk, 512, qmc=True),
+        "qmc_not_a_power_of_two": lambda: distributed.run_shardmap_smc(
+            fk, 768, qmc=True),
         "ssp": lambda: distributed.run_shardmap_smc(fk, 512,
                                                     resampling="ssp"),
         "collector": lambda: distributed.run_shardmap_smc(
             fk, 512, collect=[col.Online_smooth_naive(phi=lambda x: x)]),
         "indivisible": lambda: distributed.run_shardmap_smc(fk, 514),
-        "sampler": lambda: distributed.run_shardmap_smc(sampler, 512),
+        "sampler_ssp": lambda: distributed.run_shardmap_smc(
+            sampler, 512, resampling="ssp"),
+        "nchains": lambda: mcmc.PMMH(
+            ssm_cls=LGfixed, prior=RHO_PRIOR, data=inp["y"][:5], Nx=10,
+            niter=2, nchains=6, mesh=mesh, device=device),
     }
     out = {}
     for name, call in cases.items():
@@ -162,11 +189,154 @@ def _raises(device, inp):
     return out
 
 
+def _dqmc(device, inp):
+    """The distributed sort, Hilbert keys (with the global moments they
+    used) and Hilbert reorder on the given global arrays, and the
+    exchanges they made."""
+    D, d = dist.get_world_size(), dist.get_rank()
+
+    def sl(a):
+        return convert.rank_slice(a, d, D, device)
+
+    comm.reset_calls()
+    key, (idx, x) = dqmc.dist_sort_with(
+        sl(inp["sort_keys"]), (sl(inp["sort_idx"]), sl(inp["sort_x"])))
+    out = {"sort": (key, idx, x), "sort_calls": dict(comm.calls)}
+    hx = sl(inp["hx"])
+    m, sd = dqmc._dist_moments(hx)
+    out["keys"] = (dqmc._dist_hilbert_keys(hx), m, sd)
+    X, (lw, ix) = dqmc.dist_qmc_reorder(hx, (sl(inp["hlw"]),
+                                             sl(inp["sort_idx"])))
+    out["reorder"] = (X, lw, ix)
+    X1, (ix1,) = dqmc.dist_qmc_reorder(sl(inp["sort_x"]),
+                                       (sl(inp["sort_idx"]),))
+    out["reorder_1d"] = (X1, ix1)
+    return out
+
+
+def _sqmc(device, inp):
+    """Distributed SQMC: the bootstrap filter over seeds, the guided and
+    auxiliary filters, a 3-d model, the history, and a run whose seed a
+    single-device run repeats."""
+    y, N = inp["y"], SQMC_N
+    ssm = kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
+    out = {}
+    for name in ("Bootstrap", "GuidedPF", "AuxiliaryPF"):
+        fk = getattr(ssms, name)(ssm=ssm, data=y, device=device)
+        for seed in SEEDS:
+            comm.reset_calls()
+            res = distributed.run_shardmap_smc(fk, N, seed=seed, qmc=True)
+            out[f"{name}_{seed}"] = {"logLt": float(res.logLt),
+                                     "ESSs": res.ESSs,
+                                     "rs_flags": res.rs_flags,
+                                     "calls": dict(comm.calls)}
+    boot = ssms.Bootstrap(ssm=ssm, data=y, device=device)
+    res = distributed.run_shardmap_smc(boot, N, seed=11, qmc=True)
+    out["same_seed"] = {"logLt": float(res.logLt), "ESSs": res.ESSs}
+    res = distributed.run_shardmap_smc(boot, N, seed=9, qmc=True,
+                                       store_history=True)
+    out["hist"] = {"X": res.hist.X, "A": res.hist.A, "lw": res.hist.lw,
+                   "hilbert_ordered": res.hist.hilbert_ordered}
+    mv = kalman.MVLinearGauss_Guarniero_etal(alpha=0.4, dx=3, device=device)
+    fk = ssms.Bootstrap(ssm=mv, data=inp["y_mv"], device=device)
+    res = distributed.run_shardmap_smc(fk, N, seed=8, qmc=True)
+    out["mv"] = {"logLt": float(res.logLt), "X": res.X}
+    return out
+
+
+def _samplers(device, inp):
+    """IBIS (with Moments, a host-side collector and the history),
+    adaptive tempering under each ring, NS-SMC and SMC², sharded."""
+    model = GaussTarget(data=inp["y_conj"], prior=dists.StructDist(
+        {"m": dists.Normal(scale=2.0)}), device=device)
+    N = SAMPLER_N
+    out = {}
+    res = distributed.run_shardmap_smc(
+        ssp.IBIS(model=model, len_chain=10), N, seed=1,
+        collect=[col.Moments(), ssp.Var_logLt()], store_history=True)
+    out["ibis"] = {"logLt": float(res.logLt),
+                   "mean": float(res.moments[-1]["mean"]["m"]),
+                   "var_logLt": res.var_logLt, "ESSs": res.ESSs,
+                   "hist_T": res.hist.T, "hist_N": res.hist.X[-1].N,
+                   "X_N": res.X.N}
+    for seed in SEEDS:
+        res = distributed.run_shardmap_smc(
+            ssp.AdaptiveTempering(model=model, len_chain=10), N, seed=seed)
+        out[f"tempering_{seed}"] = {
+            "logLt": float(res.logLt), "T": len(res.ESSs),
+            "exponent": float(res.X.shared["exponent"])}
+        res = distributed.run_shardmap_smc(
+            nested.NestedSamplingSMC(model=model, len_chain=5, ESSrmin=0.3,
+                                     eps=0.01), N, seed=seed)
+        out[f"ns_{seed}"] = {"log_evid": float(res.X.shared["log_evid"]),
+                             "lt": float(res.X.shared["lt"]),
+                             "T": len(res.ESSs)}
+    for scheme in ("stratified", "multinomial"):
+        res = distributed.run_shardmap_smc(
+            ssp.AdaptiveTempering(model=model, len_chain=10), N, seed=4,
+            resampling=scheme)
+        out[f"tempering_{scheme}"] = {"logLt": float(res.logLt)}
+    for seed in range(4):
+        fk = ssp.SMC2(ssm_cls=LGfixed, prior=RHO_PRIOR, data=inp["y_smc2"],
+                      init_Nx=SMC2_NX, len_chain=4, device=device)
+        res = distributed.run_shardmap_smc(fk, SMC2_NTHETA, seed=seed)
+        out[f"smc2_{seed}"] = {"logLt": float(res.logLt), "lw": res.lw,
+                               "rho": res.X.theta["rho"],
+                               "xs": tuple(res.X.xs.shape),
+                               "T": len(res.ESSs)}
+    return out
+
+
+def _chains(device, inp):
+    """PMMH with its chains over the ranks of a 1-d mesh."""
+    mesh = sharded.make_mesh(axis_names=("chains",), device_type=device.type)
+    m = mcmc.PMMH(ssm_cls=LGfixed, prior=RHO_PRIOR, data=inp["y_pmmh"],
+                  Nx=PMMH_NX, niter=PMMH_NITER, nchains=PMMH_CHAINS, seed=9,
+                  mesh=mesh, mesh_axis="chains", device=device)
+    m.run()
+    return {"rho": m.chain.theta["rho"], "nacc": m.nacc}
+
+
+def _meshes(device, inp):
+    """``run_sharded_smc`` on a (1, 4) mesh with the schemes that have no
+    ring, and ``run_sharded_multismc`` on a (2, 2) mesh."""
+    ssm = kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
+    fk = ssms.Bootstrap(ssm=ssm, data=inp["y"], device=device)
+    out = {}
+    mesh = sharded.make_mesh(4, ("runs", "particles"), (1, 4),
+                             device_type=device.type)
+    for scheme, seeds in (("ssp", SEEDS), ("residual", (0,)),
+                          ("killing", (0,))):
+        for seed in seeds:
+            comm.reset_calls()
+            res, raw = sharded.run_sharded_smc(
+                fk, inp["N"], seed=seed, mesh=mesh, resampling=scheme,
+                store_history=seed == 0)
+            out[f"{scheme}_{seed}"] = {
+                "logLt": float(res.logLt), "rs_flags": res.rs_flags,
+                "calls": dict(comm.calls),
+                "A": None if raw is None else raw[1]}
+    res, _ = sharded.run_sharded_smc(fk, SQMC_N, seed=0, mesh=mesh,
+                                     qmc=True)
+    out["qmc"] = float(res.logLt)
+    mesh2 = sharded.make_mesh(4, ("runs", "particles"), (2, 2),
+                              device_type=device.type)
+    logLts, lws = sharded.run_sharded_multismc(fk, inp["N"], 4, seed=0,
+                                               mesh=mesh2)
+    out["multi"] = {"logLts": logLts, "lws": lws}
+    constrain = sharded.particle_constrain(mesh)
+    x = torch.zeros(8, device=device)
+    out["constrain"] = constrain(x, x)[0] is x
+    return out
+
+
 def run_all(device, inputs):
     """Every scenario of one launch of 4 ranks, in a fixed order on every
     rank: the rings on ``inputs[4]`` over the 4 ranks and on ``inputs[2]``
     over a group of ranks 0 and 1, then the engine's scenarios on
-    ``inputs[4]``."""
+    ``inputs[4]``: the filters, sharded FFBS, the raises, distributed
+    SQMC and its sort, the samplers, chains across ranks and the mesh
+    entry points."""
     inp = inputs[4]
     out = {"rings": {4: _rings(device, inp)}}
     pair = dist.new_group([0, 1])       # every rank takes part in making it
@@ -179,6 +349,11 @@ def run_all(device, inputs):
     out["ffbs"] = _ffbs(device, inp)
     out["multinomial_counts"] = _multinomial_counts(device, inp)
     out["raises"] = _raises(device, inp)
+    out["dqmc"] = _dqmc(device, inp)
+    out["sqmc"] = _sqmc(device, inp)
+    out["samplers"] = _samplers(device, inp)
+    out["chains"] = _chains(device, inp)
+    out["meshes"] = _meshes(device, inp)
     return out
 
 
