@@ -315,11 +315,32 @@ not 0 and no result line is printed.  It exits with an error at once when
     call of the gloo runs, and of a second pass of the NCCL runs (SQMC on
     T_DIST_CHECK steps), held against its plain version.
 
+21. The host helpers (``native``, C++ behind a C ABI): the library built
+    with g++ on the card's host (its seconds printed), then each helper
+    held to the port's own functions.  ``ssp_counts`` at N in {1, 2, 100,
+    1000, 8191}, M in {N, N/2 + 1, 2N + 1}, through
+    ``resampling.ssp_counts`` on the card and called directly, bit for
+    bit against ``resampling._ssp_counts_sequential`` on the same
+    uniforms (drawn from a twin of the generator, whose stream does not
+    move); ``hilbert_index`` bit for bit against ``hilbert.hilbert_index``
+    on the card, d in {1, 2, 3, 4} at the largest nbits (d nbits <= 62,
+    at most 32); ``systematic_counts`` and ``inverse_cdf`` against the
+    same formula in float64 on the card at N in {1000, 8191, 2^20}, equal
+    except at points within 4 (N + 1) 2^-53 of a knot (counted and
+    printed).  Then ``SMC(Bootstrap(LinearGauss(...)), N=4096,
+    resampling="ssp")`` on the main path's data (T = 1000): B2 once a
+    resampling step and no other kernel, logLt within 5 sd of Kalman
+    (the sd of 12 other seeds' logLt, printed), and a second run of the
+    same seed with every B2 call held to its plain version.  Host ms of one ``ssp_counts`` at N = 8191
+    through the helper and through the plain version on the same inputs,
+    of the port's call on the card, and ms a step of the run.
+
 Then the kernels line (with each kernel's launches on the smoothing path,
 ``launches_smoothing``, on phase 14's runs, ``launches_zoo``, on phase
 15's, ``launches_sqmc``, on phase 16's, ``launches_samplers``, on phase
-17's, ``launches_outer``, on phase 18's, ``launches_nested``, and on
-phases 19 and 20, ``launches_distributed``) and the result line.
+17's, ``launches_outer``, on phase 18's, ``launches_nested``, on phases
+19 and 20, ``launches_distributed``, and on phase 21's run,
+``launches_host_helpers``) and the result line.
 """
 
 import json
@@ -534,6 +555,23 @@ MULTI_RUNS = 4
 # (B2 a hop)
 SQMC_DIST_LAUNCHES = lambda D: {"running_max": 2,  # noqa: E731
                                 "merge_rank_counts": D, "repeat_by_z": D}
+# phase 21: the host helpers (native, C++ built with g++).  ssp_counts at
+# SSP_SMALL_NS (below the tree pairing's 8192) against its plain version,
+# the Hilbert index of N_HILBERT points at each d's largest nbits, the
+# systematic counts and the inverse CDF at KNOT_SIZES against float64 on
+# the card, and the headline's model and data with ssp at N_SSP_SMALL,
+# whose every resampling step the helper computes and B2 serves.  Its
+# logLt is held within LOGLT_SDS sd of Kalman, the sd that of the logLts
+# of SSP_SEEDS other seeds of the same run.  Phase 4's sqrt(T * 2.7 / N)
+# (0.81 here) is too small at this N: on the CPU, 8 seeds gave sd 1.11
+# for ssp and 2.19 for systematic, and means 1.63 and 0.56 below Kalman
+# (the log of an unbiased estimate is biased low).
+SSP_SMALL_NS = (1, 2, 100, 1000, 8191)
+N_HILBERT = 2 ** 16
+KNOT_SIZES = (1000, 8191, N_MAIN)
+N_SSP_SMALL = 4096
+LOGLT_SDS = 5
+SSP_SEEDS = 12
 
 # the card's peaks, for the bounds: HBM bytes/s and float32 operations/s
 # outside the tensor cores (NVIDIA's H100 SXM data sheet)
@@ -3714,6 +3752,190 @@ def phase_dist_more(torch, dev, smi, y, pima_logLt, results):
     return launches
 
 
+def _knots(tag, got, want, near):
+    """``got`` equals ``want`` (int arrays) wherever ``near`` (a point
+    within float64 round-off of a knot) is False.  Returns (points near a
+    knot, points differing)."""
+    differ = got != want
+    away = int(np.count_nonzero(differ & ~near))
+    _check(away == 0, f"{tag}: {away} points differ away from a knot")
+    return int(np.count_nonzero(near)), int(np.count_nonzero(differ))
+
+
+def phase_host_helpers(torch, dev, smi, y, kf_logLt):
+    """Phase 21: the host helpers of ``native``, built here with g++, each
+    held to the port's own functions; then ssp below the tree pairing on
+    the headline's model and data, its resampling steps through the
+    helper and B2.  Returns B2's launches (and the others', 0)."""
+    from particles_tpu_torch import _build, hilbert, kalman, native, ops
+    from particles_tpu_torch import resampling as rs
+    from particles_tpu_torch import state_space_models as ssms
+    from particles_tpu_torch.core import SMC
+
+    t_phase = time.perf_counter()
+    # built on this host: the library is removed first, whatever the copy
+    # of the repository carried
+    (_build.BUILD_DIR / f"lib{native.SRC.stem}.so").unlink(missing_ok=True)
+    _build.build_host(native.SRC)
+    out = {"phase": 21, "nvidia_smi": smi,
+           "gxx_seconds": _build.build_seconds[native.SRC.stem],
+           "gxx_flags": _build.CXX_FLAGS}
+    rng = np.random.default_rng(21)
+
+    # ssp_counts, through resampling.ssp_counts on the card and called
+    # directly, bit for bit against the plain version on the same uniforms
+    n_ssp = 0
+    for N in SSP_SMALL_NS:
+        for M in sorted({N, N // 2 + 1, 2 * N + 1}):
+            kind = "dirichlet0.05" if n_ssp % 2 else "dirichlet1"
+            W = torch.from_numpy(_dirichlet_like(rng, kind, N)).to(dev)
+            gen = torch.Generator(device=dev).manual_seed(N + M)
+            twin = torch.Generator(device=dev)
+            twin.set_state(gen.get_state())
+            got = rs.ssp_counts(gen, W, M)
+            u = torch.rand(N - 1, generator=twin, device=dev,
+                           dtype=torch.float64)
+            want = rs._ssp_counts_sequential(W.double().tolist(), M,
+                                             u.tolist())
+            tag = f"phase 21 ssp N={N} M={M}"
+            _check(got.device == W.device and got.dtype == torch.int32
+                   and got.cpu().tolist() == want, f"{tag}: differs")
+            direct = native.ssp_counts(W.double().cpu().numpy(), M,
+                                       u.cpu().numpy())
+            _check(direct.tolist() == want, f"{tag}: the helper differs")
+            _check(torch.equal(gen.get_state(), twin.get_state()),
+                   f"{tag}: the uniform stream moved")
+            n_ssp += 1
+    out["ssp_counts"] = {"N": list(SSP_SMALL_NS), "cases": n_ssp,
+                         "M": "N, N/2 + 1, 2N + 1",
+                         "tolerance": "bit for bit against "
+                                      "_ssp_counts_sequential"}
+
+    # the Hilbert index against hilbert.hilbert_index on the card
+    hil = {}
+    for d in (1, 2, 3, 4):
+        nbits = min(62 // d, 32)
+        coords = rng.integers(0, 2 ** nbits, size=(N_HILBERT, d),
+                              dtype=np.uint64).astype(np.uint32)
+        keys = hilbert.hilbert_index(
+            torch.from_numpy(coords.astype(np.int64)).to(dev), nbits)
+        got = native.hilbert_index(coords, nbits)
+        _check(np.array_equal(got, keys.cpu().numpy().astype(np.uint64)),
+               f"phase 21 hilbert d={d} nbits={nbits}: keys differ")
+        hil[f"d={d}"] = nbits
+    out["hilbert_index"] = {"N": N_HILBERT, "nbits": hil,
+                            "tolerance": "bit for bit"}
+
+    # systematic_counts and inverse_cdf against the same formula in float64
+    # on the card: the two CDFs, summed in other orders, differ by at most
+    # 4 (N + 1) 2^-53, so the answers agree except at points that close to
+    # a knot (a z at an integer, a uniform at a CDF value)
+    knots = {}
+    for N in KNOT_SIZES:
+        W_np = _dirichlet_like(rng, "dirichlet1", N).astype(np.float64)
+        Wd = torch.from_numpy(W_np).to(dev)
+        Wn = Wd / Wd.sum()
+        cs = torch.cumsum(Wn, 0)
+        tol = 4 * (N + 1) * 2.0 ** -53
+        for M, u in ((N, 0.37), (2 * N + 1, 0.0)):
+            x = M * cs - u
+            z = (torch.floor(x) + 1).clamp(0, M).long()
+            z[-1] = M
+            near = ((x - torch.round(x)).abs() <= M * tol).cpu().numpy()
+            z_nat = np.cumsum(native.systematic_counts(W_np, M, u))
+            knots[f"systematic N={N} M={M}"] = _knots(
+                f"phase 21 systematic N={N} M={M}", z_nat,
+                z.cpu().numpy(), near)
+            su = torch.sort(torch.rand(M, device=dev,
+                                       dtype=torch.float64)).values
+            A = rs.inverse_cdf(su, Wn)
+            below = cs[(A - 1).clamp(min=0)]
+            near = (((cs[A] - su).abs() <= tol)
+                    | ((su - below).abs() <= tol)).cpu().numpy()
+            A_nat = native.inverse_cdf(su.cpu().numpy(), W_np)
+            knots[f"inverse_cdf N={N} M={M}"] = _knots(
+                f"phase 21 inverse_cdf N={N} M={M}", A_nat.astype(np.int64),
+                A.cpu().numpy(), near)
+    out["knots"] = {"points_near_a_knot_and_differing": knots,
+                    "tolerance": "equal away from a knot; near: within "
+                                 "4 (N + 1) 2^-53 (times M for z)"}
+
+    # ssp below the tree on the headline's model and data
+    ssm = kalman.LinearGauss(rho=RHO, sigmaX=SIGX, sigmaY=SIGY)
+    fk = ssms.Bootstrap(ssm=ssm, data=torch.from_numpy(y).to(dev))
+
+    def run(seed):
+        pf = SMC(fk=fk, N=N_SSP_SMALL, resampling="ssp", seed=seed)
+        pf.run()
+        return pf
+
+    run(SSP_SEEDS + 1)      # warm
+    _zero_counts(ops)
+    pf = run(0)
+    launches = _read_counts(ops)
+    n_rs = int(pf.summaries.rs_flags.sum())
+    logLt = float(pf.logLt)
+    _check(n_rs > 0 and launches["repeat_by_z"] == n_rs
+           and all(n == 0 for k, n in launches.items()
+                   if k != "repeat_by_z"),
+           f"phase 21 ssp N={N_SSP_SMALL}: launches {launches}, {n_rs} "
+           f"resampling steps")
+    # B2 on the run's own inputs: the same seed again, every call held to
+    # its plain version
+    with _CheckedKernels(torch, ops, rs, tag="phase 21") as checked:
+        pf2 = run(0)
+    n_rs2 = int(pf2.summaries.rs_flags.sum())
+    _check(checked.calls["repeat_by_z"] == n_rs2 > 0,
+           f"phase 21: {checked.calls} B2 calls checked, {n_rs2} "
+           f"resampling steps")
+    spread = [float(run(s).logLt) for s in range(1, SSP_SEEDS + 1)]
+    sd = float(np.std(spread, ddof=1))
+    _check(np.isfinite(logLt) and np.all(np.isfinite(spread))
+           and abs(logLt - kf_logLt) < LOGLT_SDS * sd,
+           f"phase 21 ssp N={N_SSP_SMALL}: |logLt - Kalman| = "
+           f"{abs(logLt - kf_logLt)} >= {LOGLT_SDS} x {sd}")
+    out["ssp_run"] = {
+        "N": N_SSP_SMALL, "T": T_MAIN, "logLt": logLt,
+        "kalman_logLt": kf_logLt, "abs_diff": abs(logLt - kf_logLt),
+        "sd": sd, "sd_from": f"logLt of seeds 1-{SSP_SEEDS}",
+        "seeds_logLt_mean": float(np.mean(spread)),
+        "tolerance_sds": LOGLT_SDS, "resampling_steps": n_rs,
+        "launches": launches,
+        "b2_calls_checked": checked.calls["repeat_by_z"],
+        "ms_per_step": 1000.0 * pf.cpu_time / T_MAIN}
+
+    # host ms of one ssp_counts call at N = 8191: the helper against the
+    # plain version on the same inputs, and the port's call on the card
+    N = SSP_SMALL_NS[-1]
+    W_np = _dirichlet_like(rng, "dirichlet1", N).astype(np.float64)
+    u_np = rng.random(N - 1)
+    Wl, ul = W_np.tolist(), u_np.tolist()
+
+    def host_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1000.0 * (time.perf_counter() - t0))
+        return float(np.median(times))
+
+    _check(native.ssp_counts(W_np, N, u_np).tolist()
+           == rs._ssp_counts_sequential(Wl, N, ul),
+           "phase 21: the timed inputs differ")
+    Wc = torch.from_numpy(W_np.astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    card = [_sync_ms(torch, lambda: rs.ssp_counts(gen, Wc))[1]
+            for _ in range(21)]
+    out["host_ms_N8191"] = {
+        "helper": host_ms(lambda: native.ssp_counts(W_np, N, u_np), 201),
+        "plain": host_ms(lambda: rs._ssp_counts_sequential(Wl, N, ul), 9),
+        "resampling_ssp_counts_on_the_card": float(np.median(card[1:])),
+        "timing": "host clock, median of 201, 9 and 20 calls"}
+    out["seconds"] = time.perf_counter() - t_phase
+    _emit(out)
+    return {f"ssp N={N_SSP_SMALL}": launches}
+
+
 def main():
     import torch
 
@@ -4321,6 +4543,7 @@ def main():
                                             dist_more_jobs(y))
     dist_launches.update(phase_dist_more(torch, dev, smi, y, pima_logLt,
                                          more))
+    helper_launches = phase_host_helpers(torch, dev, smi, y, kf_logLt)
     # the largest error against the plain version includes the smoothing,
     # zoo, SQMC, sampler, outer-loop and nested phases' checks on their own
     # inputs
@@ -4343,6 +4566,8 @@ def main():
                                 for run, n in nested_launches.items()}
         k["launches_distributed"] = {run: n[k["name"]]
                                      for run, n in dist_launches.items()}
+        k["launches_host_helpers"] = {run: n[k["name"]]
+                                      for run, n in helper_launches.items()}
         if k["name"] in path_err:
             k["max_abs_err"] = max([k["max_abs_err"]] + [
                 c.get(path_err[k["name"]], 0) for c in checks])

@@ -20,7 +20,8 @@ systematic z-form, B3 the monotone CDF of every other inverse-CDF scheme,
 B5 the merge of sorted uniforms with it, B4 the inverse-CDF serve of
 unsorted uniforms (``multinomial_iid``), B2 the move by z.  No scheme
 reads a device value on the host, except the sequential SSP below
-``_SSP_BLOCKED_MIN``, a host loop as in the JAX package.
+``_SSP_BLOCKED_MIN``, a host loop in C++ (``native.ssp_counts``) as in
+the JAX package.
 
 Under a :mod:`particles_tpu_torch.distctx` context the reductions of
 :class:`Weights`, ``log_mean_exp``, ``wmean_and_var`` and
@@ -34,7 +35,7 @@ import math
 
 import torch
 
-from particles_tpu_torch import distctx
+from particles_tpu_torch import distctx, native
 from particles_tpu_torch.ops import (
     ancestors_by_su,
     ancestors_by_z,
@@ -428,10 +429,14 @@ _SSP_K = 32
 
 def _ssp_counts_sequential(W, M, u):
     """The sequential SSP pairing over Python floats (``W`` and ``u`` lists
-    of N and N - 1 numbers), as the JAX package's ``native.ssp_counts``:
-    float64, with its round-off fix-up so that the counts sum to M."""
+    of N and N - 1 numbers): the plain version of ``native.ssp_counts``,
+    with the same float64 arithmetic in the same order (the total too: a
+    left-to-right sum, where Python's ``sum`` of floats compensates) and
+    its round-off fix-up so that the counts sum to M."""
     N = len(W)
-    total = sum(W)
+    total = 0.0
+    for w in W:
+        total += w
     counts, xi = [], []
     for w in W:
         mw = M * w / total
@@ -530,17 +535,21 @@ def ssp_counts(gen, W, M=None):
     2019).
 
     At N >= ``_SSP_BLOCKED_MIN`` the tree pairing on the device
-    (:func:`_ssp_counts_blocked`); below it the sequential pairing as a
-    host loop over float64 values, which reads W on the host (the one
-    scheme step that syncs).
+    (:func:`_ssp_counts_blocked`).  Below it the sequential pairing on the
+    host, by the C++ helper ``native.ssp_counts`` (float64; equal bit for
+    bit to :func:`_ssp_counts_sequential`): N - 1 float64 uniforms drawn
+    from ``gen`` on W's device, W and the uniforms read on the host in one
+    copy (the one scheme step that syncs), the int32 counts put back on
+    W's device.
     """
     M = W.shape[0] if M is None else M
     N = W.shape[0]
     if N >= _SSP_BLOCKED_MIN:
         return _ssp_counts_blocked(gen, W, M)
     u = torch.rand(N - 1, generator=gen, device=W.device, dtype=torch.float64)
-    counts = _ssp_counts_sequential(W.double().tolist(), M, u.tolist())
-    return torch.tensor(counts, dtype=torch.int32, device=W.device)
+    host = torch.cat([W.double(), u]).cpu().numpy()
+    counts = native.ssp_counts(host[:N], M, host[N:])
+    return torch.from_numpy(counts).to(W.device)
 
 
 rs_counts_funcs = {

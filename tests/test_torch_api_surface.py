@@ -1,9 +1,10 @@
 """The PyTorch port's public surface against the JAX package's.
 
 ``REFERENCE_SURFACE`` (``tests/test_api_surface.py``) lists every public
-name of the JAX package by module, and ``DIST_SURFACE`` the names of its
-distributed path (``distctx`` and ``parallel``), which that list leaves
-out.  Each name is ``PORTED`` (it must exist in the same module of
+name of the JAX package by module, ``DIST_SURFACE`` the names of its
+distributed path (``distctx`` and ``parallel``) and ``NATIVE_SURFACE``
+those of its C++ host helpers (``native``), which that list leaves out.
+Each name is ``PORTED`` (it must exist in the same module of
 ``particles_tpu_torch``) or ``MISSING`` (it must not exist yet, labelled
 by ROADMAP item).  No module of the port imports JAX or the JAX package.
 """
@@ -24,7 +25,11 @@ DIST_SURFACE = {
         "run_sharded_multismc", "ring_systematic_resample",
         "run_shardmap_smc", "sharded_backward_mcmc"],
 }
-SURFACE = {**REFERENCE_SURFACE, **DIST_SURFACE}
+NATIVE_SURFACE = {
+    "particles_tpu.native": ["AVAILABLE", "inverse_cdf", "systematic_counts",
+                             "ssp_counts", "hilbert_index"],
+}
+SURFACE = {**REFERENCE_SURFACE, **DIST_SURFACE, **NATIVE_SURFACE}
 
 PORTED = {
     "particles_tpu": ["SMC", "SQMC", "FeynmanKac", "multiSMC"],
@@ -70,6 +75,7 @@ PORTED = {
         "MCMC", "VanishCovTracker", "GenericRWHM", "BasicRWHM", "PMMH",
         "CSMC", "GenericGibbs", "ParticleGibbs",
     ],
+    "particles_tpu.native": NATIVE_SURFACE["particles_tpu.native"],
     "particles_tpu.parallel": ["ring_systematic_resample",
                                "run_shardmap_smc", "sharded_backward_mcmc",
                                "make_mesh", "particle_constrain",
@@ -122,15 +128,16 @@ def test_lists_split_the_reference_surface(module_name):
     assert sorted(ported + missing) == sorted(SURFACE[module_name])
 
 
-@pytest.mark.parametrize("module_name", sorted(DIST_SURFACE))
+@pytest.mark.parametrize("module_name",
+                         sorted({**DIST_SURFACE, **NATIVE_SURFACE}))
 def test_dist_surface_is_the_jax_packages(module_name):
-    """``DIST_SURFACE`` holds every public function and class of the JAX
-    package's distributed modules."""
+    """``DIST_SURFACE`` and ``NATIVE_SURFACE`` hold every public name of
+    the JAX package's distributed modules and of its host helpers."""
     mod = importlib.import_module(module_name)
     names = getattr(mod, "__all__", None) or [
         n for n, v in vars(mod).items()
         if not n.startswith("_") and callable(v)]
-    assert sorted(names) == sorted(DIST_SURFACE[module_name])
+    assert sorted(names) == sorted(SURFACE[module_name])
 
 
 @pytest.mark.parametrize("module_name", sorted(PORTED))
