@@ -882,12 +882,27 @@ def _device_ms(torch, fn, calls=20):
 
 
 def _zero_counts(ops):
-    for f in ops.KERNELS.values():
-        f.launches = 0
+    """Zero every counter of ``tracing``: the kernels' launches, the
+    collectives' calls and the host reads."""
+    from particles_tpu_torch import tracing
+
+    tracing.reset()
 
 
 def _read_counts(ops):
-    return {name: f.launches for name, f in ops.KERNELS.items()}
+    """Each kernel's launches since :func:`_zero_counts`."""
+    from particles_tpu_torch import tracing
+
+    counts = tracing.counts()
+    return {name: counts.get("launch." + name, 0) for name in ops.KERNELS}
+
+
+def _read_calls(comm):
+    """Each collective's calls since :func:`_zero_counts`."""
+    from particles_tpu_torch import tracing
+
+    counts = tracing.counts()
+    return {name: counts.get("comm." + name, 0) for name in comm.COLLECTIVES}
 
 
 def _sync_ms(torch, fn):
@@ -3094,7 +3109,7 @@ def _timed_comm(torch, comm):
     ``torch.cuda.synchronize()`` and its wall time added up; returns (the
     seconds so far, a function that restores the module)."""
     spent = [0.0]
-    real = {k: getattr(comm, k) for k in comm.calls}
+    real = {k: getattr(comm, k) for k in comm.COLLECTIVES}
 
     def timed(f):
         def g(*a, **kw):
@@ -3145,7 +3160,6 @@ def _dist_rank(device, job):
     for tag, name, scheme, T, ESSrmin in job["runs"]:
         fk = fk_of(name, T)
         _zero_counts(ops)
-        comm.reset_calls()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = distributed.run_shardmap_smc(fk, N_MAIN, seed=0,
@@ -3157,7 +3171,7 @@ def _dist_rank(device, job):
             "fk": name, "scheme": scheme, "T": T, "ESSrmin": ESSrmin,
             "logLt": float(res.logLt),
             "rs_flags": res.rs_flags.cpu().numpy(),
-            "launches": _read_counts(ops), "calls": dict(comm.calls),
+            "launches": _read_counts(ops), "calls": _read_calls(comm),
             "wall_s": wall, "ms_per_step": 1000.0 * wall / T,
             "finite": bool(torch.isfinite(res.X).all())}
     # the collectives' share of a step: each bracketed by synchronize
@@ -3231,7 +3245,6 @@ def _dist_rank(device, job):
         res = distributed.run_shardmap_smc(fk, N_SMOOTH, seed=21,
                                            store_history=True)
         _zero_counts(ops)
-        comm.reset_calls()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         paths = distributed.sharded_backward_mcmc(res.hist, N_SMOOTH,
@@ -3242,7 +3255,7 @@ def _dist_rank(device, job):
             "finite": bool(torch.isfinite(paths).all()),
             "ms_per_backward_step": 1000.0 * (time.perf_counter() - t0)
             / (T_SMOOTH - 1),
-            "calls": dict(comm.calls), "launches": _read_counts(ops)}
+            "calls": _read_calls(comm), "launches": _read_counts(ops)}
         # B3 and B4 against their plain versions on this pass's own
         # inputs, in a second pass that the counts above do not see
         with _CheckedKernels(torch, ops, rs) as checked:
@@ -3560,14 +3573,13 @@ def _dist20_rank(device, job):
         check = (_CheckedKernels(torch, ops, rs, f"phase 20 {tag}")
                  if job["checked"] else contextlib.nullcontext())
         _zero_counts(ops)
-        comm.reset_calls()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with check:
             rec = runs[tag]()
         torch.cuda.synchronize()
         rec.update(wall_s=time.perf_counter() - t0,
-                   launches=_read_counts(ops), calls=dict(comm.calls),
+                   launches=_read_counts(ops), calls=_read_calls(comm),
                    checked_calls=getattr(check, "calls", None))
         out["runs"][tag] = rec
     if not job["checked"]:      # the second pass, every kernel checked
@@ -4091,12 +4103,11 @@ def main():
         ssm=ssm, data=torch.from_numpy(y.astype(np.float64))).logLt)
 
     def main_path(seed):
-        ops.systematic_z_fused.launches = 0
-        ops.repeat_cols.launches = 0
+        _zero_counts(ops)
         pf = SMC(fk=fk, N=N_MAIN, seed=seed)
         pf.run()
-        launches = {"systematic_z": ops.systematic_z_fused.launches,
-                    "repeat_by_z": ops.repeat_cols.launches}
+        launches = {k: v for k, v in _read_counts(ops).items()
+                    if k in ("systematic_z", "repeat_by_z")}
         n_rs = int(pf.summaries.rs_flags.sum())
         logLt = float(pf.logLt)
         _check(np.isfinite(logLt), f"main path seed {seed}: logLt {logLt}")

@@ -24,7 +24,9 @@ particle-sharded filter on ``torch.distributed`` (``parallel``:
 ``run_shardmap_smc``, the systematic, stratified and multinomial rings,
 sharded FFBS-MCMC; ``distctx``, the ambient context), and the six kernels
 of ``ops``.  Entry points run on the current CUDA card
-unless given ``device="cpu"`` or CPU tensors.
+unless given ``device="cpu"`` or CPU tensors.  ``tracing`` marks a step's
+work for ``torch.profiler`` (``particles.*`` ranges) and counts launches,
+collectives and host reads.
 """
 
 __version__ = "0.1.0"
@@ -52,6 +54,7 @@ _SUBMODULES = (
     "smc_samplers",
     "smoothing",
     "state_space_models",
+    "tracing",
     "utils",
     "variance_estimators",
     "variance_mcmc",

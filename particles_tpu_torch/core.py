@@ -41,6 +41,7 @@ from particles_tpu_torch import ops
 from particles_tpu_torch import resampling as rs
 from particles_tpu_torch import rqmc
 from particles_tpu_torch import smoothing
+from particles_tpu_torch import tracing
 from particles_tpu_torch import utils
 
 __all__ = ["FeynmanKac", "SMC", "SQMC", "SMCResult", "StepView", "multiSMC"]
@@ -200,6 +201,13 @@ def _reorder(X, extras):
     return dqmc.dist_qmc_reorder(X, extras, ctx.group)
 
 
+def _model(f, *args):
+    """``f(*args)``, a call into the user's model, inside the span
+    ``particles.model``."""
+    with tracing.span("model"):
+        return f(*args)
+
+
 def _step0(fk, gen, N, ESSrmin, summaries, need_gen, qmc=False):
     """Step t=0.  Under ``qmc`` the particles are ``Gamma0`` of scrambled
     Sobol points, and the carry holds them in Hilbert order.
@@ -218,13 +226,15 @@ def _step0(fk, gen, N, ESSrmin, summaries, need_gen, qmc=False):
         else:
             u = rqmc.sobol(gen, _dist_qmc_count(N, ctx), du,
                            start=ctx.rank * N, count=N)
-        X = fk.Gamma0(u if du > 1 else u[:, 0])
         # every later step draws du + 1 columns: their direction numbers
         # go to the device now, since a copy from the host synchronises
         rqmc.load_directions(du + 1, u.device)
-    else:
-        X = fk.M0(gen if ctx is None else ctx.gen, N)
-    lw = fk.logG(0, None, X)
+    with tracing.span("model"):
+        if qmc:
+            X = fk.Gamma0(u if du > 1 else u[:, 0])
+        else:
+            X = fk.M0(gen if ctx is None else ctx.gen, N)
+        lw = fk.logG(0, None, X)
     if qmc:
         X, (lw,) = _reorder(X, (lw,))
     wgts = rs.Weights(lw)
@@ -282,7 +292,7 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     X, lw = carry.X, carry.lw
     wgts = carry.wgts if carry.wgts is not None else rs.Weights(lw)
     if fk.isAPF:
-        logetat = fk.logeta(t - 1, X)
+        logetat = _model(fk.logeta, t - 1, X)
         aux = wgts.add(logetat)
     else:
         logetat, aux = None, wgts
@@ -290,7 +300,8 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
     pre_view = StepView(fk=fk, t=t, X=X, Xp=X, A=None, wgts=wgts, aux=aux,
                         rs_flag=None, logLt=carry.logLt, loglt=None, N=Ng,
                         ESSrmin=ESSrmin, gen=gen)
-    rs_flag = bool(fk.time_to_resample(pre_view))   # the step's host sync
+    with tracing.sync("decide"):
+        rs_flag = bool(fk.time_to_resample(pre_view))   # the step's host sync
     if rs_flag:
         if ctx is not None:
             from particles_tpu_torch.parallel import distributed
@@ -307,12 +318,13 @@ def _step(fk, gen, carry, t, N, scheme, ESSrmin, summaries, need_gen):
         if logetat is None:
             lw = torch.zeros_like(lw)
         else:
-            lw = aux.log_mean - wgts.log_mean - fk.logeta(t - 1, Xp)
+            lw = (aux.log_mean - wgts.log_mean
+                  - _model(fk.logeta, t - 1, Xp))
     else:
         Xp = X
         A = _identity_ancestors(N, lw.device) if need_gen else None
-    X_new = fk.M(gen if ctx is None else ctx.gen, t, Xp)
-    lw_new = lw + fk.logG(t, Xp, X_new)
+    X_new = _model(fk.M, gen if ctx is None else ctx.gen, t, Xp)
+    lw_new = lw + _model(fk.logG, t, Xp, X_new)
     new_wgts = rs.Weights(lw_new)
     if rs_flag:
         loglt = new_wgts.log_mean
@@ -359,7 +371,7 @@ def _step_qmc(fk, gen, carry, t, N, ESSrmin, summaries, need_gen,
     X, lw = carry.X, carry.lw
     wgts = rs.Weights(lw)
     if fk.isAPF:
-        logetat = fk.logeta(t - 1, X)
+        logetat = _model(fk.logeta, t - 1, X)
         aux = wgts.add(logetat)
     else:
         logetat, aux = None, wgts
@@ -388,10 +400,10 @@ def _step_qmc(fk, gen, carry, t, N, ESSrmin, summaries, need_gen,
         lw_reset = torch.zeros_like(lw)
     else:
         lw_reset = (rs.log_mean_exp(logetat, lw=wgts.lw)
-                    - fk.logeta(t - 1, Xp))
+                    - _model(fk.logeta, t - 1, Xp))
     v = points[:, 1] if du == 1 else points[:, 1:]
-    X_new = fk.Gamma(t, Xp, v)
-    lw_new = lw_reset + fk.logG(t, Xp, X_new)
+    X_new = _model(fk.Gamma, t, Xp, v)
+    lw_new = lw_reset + _model(fk.logG, t, Xp, X_new)
     if need_gen:
         X_h, (lw_h, A_s, Xp_h) = _reorder(X_new, (lw_new, A, Xp))
     else:
@@ -663,34 +675,36 @@ class SMC:
             self.hist = self._hist_obj.finalize(self.fk)
 
     def __next__(self):
-        if self.fk.done(self):
-            if self.summaries is not None:
-                self.summaries.finalize_lists()
-            self._finalize_history()
-            raise StopIteration
-        if self.is_sampler:
-            from particles_tpu_torch import smc_samplers
+        with tracing.span("step", t=self.t):
+            if self.fk.done(self):
+                if self.summaries is not None:
+                    self.summaries.finalize_lists()
+                self._finalize_history()
+                raise StopIteration
+            if self.is_sampler:
+                from particles_tpu_torch import smc_samplers
 
-            smc_samplers.sampler_next(self)
-            return
-        if self.t == 0:
-            carry, view, outs = _step0(self.fk, self.gen, self.N,
-                                       self.ESSrmin, self.summaries,
-                                       self._need_gen, qmc=self.qmc)
-        elif self.qmc:
-            carry, view, outs = _step_qmc(self.fk, self.gen, self._carry,
-                                          self.t, self.N, self.ESSrmin,
-                                          self.summaries, self._need_gen)
-        else:
-            carry, view, outs = _step(self.fk, self.gen, self._carry, self.t,
-                                      self.N, self.resampling, self.ESSrmin,
-                                      self.summaries, self._need_gen)
-        self._install_view(view, carry)
-        if self.summaries is not None:
-            self.summaries.append_step(outs)
-        if self.verbose:
-            print(self)
-        self.t += 1
+                smc_samplers.sampler_next(self)
+                return
+            if self.t == 0:
+                carry, view, outs = _step0(self.fk, self.gen, self.N,
+                                           self.ESSrmin, self.summaries,
+                                           self._need_gen, qmc=self.qmc)
+            elif self.qmc:
+                carry, view, outs = _step_qmc(
+                    self.fk, self.gen, self._carry, self.t, self.N,
+                    self.ESSrmin, self.summaries, self._need_gen)
+            else:
+                carry, view, outs = _step(
+                    self.fk, self.gen, self._carry, self.t, self.N,
+                    self.resampling, self.ESSrmin, self.summaries,
+                    self._need_gen)
+            self._install_view(view, carry)
+            if self.summaries is not None:
+                self.summaries.append_step(outs)
+            if self.verbose:
+                print(self)
+            self.t += 1
 
     def next(self):
         return self.__next__()

@@ -37,6 +37,7 @@ import torch
 
 from particles_tpu_torch import resampling as rs
 from particles_tpu_torch import smc_samplers as ssps
+from particles_tpu_torch import tracing
 from particles_tpu_torch import utils
 from particles_tpu_torch.distributions import _cholesky
 
@@ -297,13 +298,16 @@ class NestedSamplingSMC(ssps.FKSMCsampler):
         # only lt == +inf ends the run (the last level consumes the rest of
         # the prior mass); lt == -inf happens mid-run, when most particles
         # sit where the likelihood is zero
-        return bool(smc.X.shared["lt"] == torch.inf)
+        with tracing.sync("done"):
+            return bool(smc.X.shared["lt"] == torch.inf)
 
     def _M0(self, gen, N0):
-        th = dict(self.model.prior.rvs(gen, size=N0))
-        lprior = self.model.prior.logpdf(th)
-        x = ssps.ThetaParticles(theta=th, lprior=lprior,
-                                llik=self.model.loglik(th), lpost=lprior)
+        with tracing.span("model"):
+            th = dict(self.model.prior.rvs(gen, size=N0))
+            lprior = self.model.prior.logpdf(th)
+            llik = self.model.loglik(th)
+        x = ssps.ThetaParticles(theta=th, lprior=lprior, llik=llik,
+                                lpost=lprior)
         like = lprior
         cal = self.move.calibrate(ssps._uniform_weights(N0, like), x)
         minus_inf = torch.full((), -torch.inf, dtype=torch.float32,
@@ -313,8 +317,9 @@ class NestedSamplingSMC(ssps.FKSMCsampler):
 
     def current_target(self, lt):
         def target(xx):
-            lprior = self.model.prior.logpdf(xx.theta)
-            llik = self.model.loglik(xx.theta)
+            with tracing.span("model"):
+                lprior = self.model.prior.logpdf(xx.theta)
+                llik = self.model.loglik(xx.theta)
             lpost = torch.where(
                 torch.isinf(lt) & (lt < 0), lprior,
                 torch.where(llik >= lt, lprior, -torch.inf))

@@ -3,16 +3,25 @@ plain PyTorch version beside it (counterpart of ``particles_tpu.ops``).
 
 A wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches its kernel or raises.  Each wrapper counts its launches
-in ``<wrapper>.launches``:
+in the counter ``launch.<kernel>`` of :mod:`particles_tpu_torch.tracing`,
+``<kernel>`` one of :data:`KERNELS`:
 
-=====  ============================  ==================================
-B1     ``systematic_z_fused``        systematic z-form
-B2     ``repeat_cols``               resampling move by z
-B3     ``normalised_cumsum_exact``   monotone normalised cumsum
-B4     ``repeat_cols_su``            resampling move by the inverse CDF
-B5     ``merge_rank_counts``         sorted-merge rank count
-B6     ``running_max``               inclusive running max
-=====  ============================  ==================================
+=====  ===========================  =====================  ===============
+ID     Wrapper                      ``<kernel>``           What
+=====  ===========================  =====================  ===============
+B1     ``systematic_z_fused``       ``systematic_z``       systematic
+                                                           z-form
+B2     ``repeat_cols``              ``repeat_by_z``        move by z
+B3     ``normalised_cumsum_exact``  ``normalised_cumsum``  monotone
+                                                           normalised
+                                                           cumsum
+B4     ``repeat_cols_su``           ``repeat_by_su``       move by the
+                                                           inverse CDF
+B5     ``merge_rank_counts``        ``merge_rank_counts``  sorted-merge
+                                                           rank count
+B6     ``running_max``              ``running_max``        inclusive
+                                                           running max
+=====  ===========================  =====================  ===============
 """
 
 from particles_tpu_torch.ops.cummax_kernel import (  # noqa: F401
@@ -49,12 +58,6 @@ from particles_tpu_torch.ops.z_kernel import (  # noqa: F401
     systematic_z_plain,
 )
 
-# the launch counters of every kernel, by the wrapper that counts them
-KERNELS = {
-    "systematic_z": systematic_z_fused,
-    "repeat_by_z": repeat_cols,
-    "normalised_cumsum": normalised_cumsum_exact,
-    "repeat_by_su": repeat_cols_su,
-    "merge_rank_counts": merge_rank_counts,
-    "running_max": running_max,
-}
+# the kernels, each counted as tracing's ``launch.<kernel>``
+KERNELS = ("systematic_z", "repeat_by_z", "normalised_cumsum", "repeat_by_su",
+           "merge_rank_counts", "running_max")

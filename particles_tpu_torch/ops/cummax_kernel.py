@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from particles_tpu_torch import _build
+from particles_tpu_torch import _build, tracing
 from particles_tpu_torch.ops._launch import coop_geometry, on_device
 
 __all__ = ["running_max", "running_max_plain", "running_max_geometry"]
@@ -77,11 +77,8 @@ def running_max(z):
     if err != 0:
         raise RuntimeError(f"running_max kernel launch failed: CUDA error "
                            f"{err}")
-    running_max.launches += 1
+    tracing.count("launch.running_max")
     return buf[:N]
-
-
-running_max.launches = 0   # kernel launches, for tracing the path
 
 
 def running_max_geometry(device=None):

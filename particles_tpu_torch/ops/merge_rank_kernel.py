@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from particles_tpu_torch import _build
+from particles_tpu_torch import _build, tracing
 from particles_tpu_torch.ops._launch import on_device
 
 __all__ = ["MERGE_RANK_TILE", "MERGE_RANK_WINDOW", "merge_rank_counts",
@@ -109,8 +109,6 @@ def merge_rank_counts(su, cs, M):
     if err != 0:
         raise RuntimeError(f"merge_rank_counts kernel launch failed: CUDA "
                            f"error {err}")
-    merge_rank_counts.launches += 1
+    tracing.count("launch.merge_rank_counts")
     return z
 
-
-merge_rank_counts.launches = 0   # kernel launches, for tracing the path

@@ -49,7 +49,7 @@ import ctypes
 
 import torch
 
-from particles_tpu_torch import _build
+from particles_tpu_torch import _build, tracing
 from particles_tpu_torch.ops._launch import on_device
 
 __all__ = ["MAX_PAYLOADS", "MERGE_TILE", "GUIDE_SHIFT", "guide_buckets",
@@ -212,11 +212,8 @@ def repeat_cols(z, M, cols, want_anc=False):
         return lib.pt_repeat_by_z(z.data_ptr(), N, M, P, desc, anc, stream)
 
     served, A, n = _launch_chunks(launch, N, M, cols, want_anc, z.device)
-    repeat_cols.launches += n
+    tracing.count("launch.repeat_by_z", n)
     return served, A
-
-
-repeat_cols.launches = 0   # kernel launches, for tracing the path
 
 
 def repeat_by_z(x, z, M):
@@ -275,11 +272,8 @@ def repeat_cols_su(su, cs, M, cols, want_anc=False):
         return err
 
     served, A, n = _launch_chunks(launch, N, M, cols, want_anc, cs.device)
-    repeat_cols_su.launches += n
+    tracing.count("launch.repeat_by_su", n)
     return served, A
-
-
-repeat_cols_su.launches = 0   # kernel launches, for tracing the path
 
 
 def ancestors_by_su(su, cs):

@@ -40,7 +40,7 @@ import ctypes
 
 import torch
 
-from particles_tpu_torch import _build
+from particles_tpu_torch import _build, tracing
 from particles_tpu_torch.ops._launch import coop_geometry, on_device
 
 __all__ = ["systematic_z_fused", "systematic_z_plain",
@@ -157,11 +157,8 @@ def systematic_z_fused(W, u, M):
     if err != 0:
         raise RuntimeError(f"systematic_z kernel launch failed: CUDA error "
                            f"{err}")
-    systematic_z_fused.launches += 1
+    tracing.count("launch.systematic_z")
     return buf[:N]
-
-
-systematic_z_fused.launches = 0   # kernel launches, for tracing the path
 
 
 def systematic_z_geometry(device=None):
@@ -213,8 +210,6 @@ def normalised_cumsum_exact(W):
     if err != 0:
         raise RuntimeError(f"normalised_cumsum kernel launch failed: CUDA "
                            f"error {err}")
-    normalised_cumsum_exact.launches += 1
+    tracing.count("launch.normalised_cumsum")
     return buf[:N]
 
-
-normalised_cumsum_exact.launches = 0   # kernel launches, for tracing the path

@@ -6,11 +6,12 @@ as plain functions on tensors over an explicit process group (None: the
 default group).  Every rank of the group calls each function in the same
 order, as with any collective.
 
-Each function counts its calls in :data:`calls`, as the kernels'
-wrappers count their launches (``ops.KERNELS``): ``pmax`` and ``psum``
-are one all-reduce each, ``all_gather`` one all-gather, ``ring_shift`` one
-hop of the ring and ``exchange`` one swap with a partner (one
-``batch_isend_irecv`` for every tensor either moves).
+Each function counts its calls in the counter ``comm.<name>`` of
+:mod:`particles_tpu_torch.tracing`, beside the kernels' launches
+(``launch.<kernel>``); :data:`COLLECTIVES` names them.  ``pmax`` and
+``psum`` are one all-reduce each, ``all_gather`` one all-gather,
+``ring_shift`` one hop of the ring and ``exchange`` one swap with a
+partner (one ``batch_isend_irecv`` for every tensor either moves).
 
 Where the operands live: under NCCL they stay on the device.  Under gloo
 an operand on a CUDA device passes through host memory (copied out,
@@ -23,18 +24,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["calls", "reset_calls", "pmax", "psum", "all_gather",
-           "ring_shift", "exchange"]
+from particles_tpu_torch import tracing
 
-# calls of each collective since the last reset_calls()
-calls = {"pmax": 0, "psum": 0, "all_gather": 0, "ring_shift": 0,
-         "exchange": 0}
+__all__ = ["COLLECTIVES", "pmax", "psum", "all_gather", "ring_shift",
+           "exchange"]
 
-
-def reset_calls():
-    """Set every count of :data:`calls` to 0."""
-    for k in calls:
-        calls[k] = 0
+# the collectives, each counted as ``comm.<name>``
+COLLECTIVES = ("pmax", "psum", "all_gather", "ring_shift", "exchange")
 
 
 def _to_wire(t, group):
@@ -58,7 +54,7 @@ def _peer(group, rank):
 def pmax(x, group=None):
     """The maximum of the 0-d tensor ``x`` over the group's ranks (one
     all-reduce)."""
-    calls["pmax"] += 1
+    tracing.count("comm.pmax")
     buf, back = _to_wire(x.detach().reshape(1).clone(), group)
     dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
     return _from_wire(buf, back).reshape(())
@@ -67,7 +63,7 @@ def pmax(x, group=None):
 def psum(*xs, group=None):
     """The sums over the group's ranks of the tensors ``xs`` (one dtype),
     all in one all-reduce: a tuple of tensors shaped as ``xs``."""
-    calls["psum"] += 1
+    tracing.count("comm.psum")
     flat = torch.cat([x.detach().reshape(-1) for x in xs])
     buf, back = _to_wire(flat, group)
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
@@ -80,7 +76,7 @@ def psum(*xs, group=None):
 def all_gather(x, group=None):
     """The ranks' ``x`` (one shape on every rank) joined in rank order
     along the first dimension; a 0-d ``x`` gives a (D,) tensor."""
-    calls["all_gather"] += 1
+    tracing.count("comm.all_gather")
     buf, back = _to_wire(x.detach().contiguous(), group)
     if buf.ndim == 0:
         buf = buf.reshape(1)
@@ -111,7 +107,7 @@ def ring_shift(tensors, group=None):
     ``(rank + 1) % D`` and receives the same-shaped tensors of rank
     ``(rank - 1) % D``, in one ``batch_isend_irecv``.  Returns the received
     tensors, in order."""
-    calls["ring_shift"] += 1
+    tracing.count("comm.ring_shift")
     D = dist.get_world_size(group)
     rank = dist.get_rank(group)
     return _send_recv(tensors, (rank + 1) % D, (rank - 1) % D, group)
@@ -121,5 +117,5 @@ def exchange(tensors, partner, group=None):
     """Swap ``tensors`` with group rank ``partner``, which calls this with
     this rank as its partner and same-shaped tensors, in one
     ``batch_isend_irecv``.  Returns the partner's tensors, in order."""
-    calls["exchange"] += 1
+    tracing.count("comm.exchange")
     return _send_recv(tensors, partner, partner, group)

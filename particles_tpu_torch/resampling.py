@@ -35,7 +35,7 @@ import math
 
 import torch
 
-from particles_tpu_torch import distctx, native
+from particles_tpu_torch import distctx, native, tracing
 from particles_tpu_torch.ops import (
     ancestors_by_su,
     ancestors_by_z,
@@ -228,25 +228,26 @@ class Weights:
         if lw is None:
             self.W = self.ESS = self.log_mean = None
             return
-        lw = torch.nan_to_num(lw, nan=-torch.inf, posinf=torch.inf,
-                              neginf=-torch.inf)
-        self.lw = lw
-        ctx = distctx.current()
-        m = _dist_max(lw)
-        w = torch.exp(lw - m)
-        if ctx is None:
-            s = w.sum()
-            self.log_mean = m + torch.log(s / lw.shape[0])
-            self.W = w / s
-            self.ESS = 1.0 / (self.W * self.W).sum()
-        else:
-            # lw is the rank's slice; W is its slice of the globally
-            # normalised weights, ESS and log_mean are global: one max and
-            # one fused pair of sums over the ranks
-            s, s2 = _dist_sum(w.sum(), (w * w).sum())
-            self.log_mean = m + torch.log(s / (lw.shape[0] * ctx.D))
-            self.W = w / s
-            self.ESS = s * s / s2
+        with tracing.span("weights"):
+            lw = torch.nan_to_num(lw, nan=-torch.inf, posinf=torch.inf,
+                                  neginf=-torch.inf)
+            self.lw = lw
+            ctx = distctx.current()
+            m = _dist_max(lw)
+            w = torch.exp(lw - m)
+            if ctx is None:
+                s = w.sum()
+                self.log_mean = m + torch.log(s / lw.shape[0])
+                self.W = w / s
+                self.ESS = 1.0 / (self.W * self.W).sum()
+            else:
+                # lw is the rank's slice; W is its slice of the globally
+                # normalised weights, ESS and log_mean are global: one max and
+                # one fused pair of sums over the ranks
+                s, s2 = _dist_sum(w.sum(), (w * w).sum())
+                self.log_mean = m + torch.log(s / (lw.shape[0] * ctx.D))
+                self.W = w / s
+                self.ESS = s * s / s2
 
     @property
     def N(self):
@@ -547,7 +548,8 @@ def ssp_counts(gen, W, M=None):
     if N >= _SSP_BLOCKED_MIN:
         return _ssp_counts_blocked(gen, W, M)
     u = torch.rand(N - 1, generator=gen, device=W.device, dtype=torch.float64)
-    host = torch.cat([W.double(), u]).cpu().numpy()
+    with tracing.sync("ssp"):
+        host = torch.cat([W.double(), u]).cpu().numpy()
     counts = native.ssp_counts(host[:N], M, host[N:])
     return torch.from_numpy(counts).to(W.device)
 

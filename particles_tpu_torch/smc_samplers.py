@@ -83,6 +83,7 @@ from particles_tpu_torch import distctx
 from particles_tpu_torch import inner_pf
 from particles_tpu_torch import ops
 from particles_tpu_torch import resampling as rs
+from particles_tpu_torch import tracing
 from particles_tpu_torch import variance_mcmc
 from particles_tpu_torch.distributions import _cholesky
 from particles_tpu_torch.parallel import comm
@@ -717,7 +718,8 @@ class AdaptiveMCMCSequence(MCMCSequence):
             dist = new_dist
             i += 1
             if i < self.nsteps:
-                go = bool(go_t)     # the chain step's host read
+                with tracing.sync("chain"):
+                    go = bool(go_t)     # the chain step's host read
         # the REALISED acceptance rate of this move (a stale value made
         # SMC2's Nx doubling fire forever in the JAX package)
         acc_sum = torch.stack(accs).sum() if accs else dist
@@ -802,19 +804,24 @@ class IBIS(FKSMCsampler):
     posteriors (reference smc_samplers.py:772-794)."""
 
     def _M0(self, gen, N0):
-        th = dict(self.model.prior.rvs(gen, size=N0))
-        x = ThetaParticles(theta=th, lpost=self.model.prior.logpdf(th))
+        with tracing.span("model"):
+            th = dict(self.model.prior.rvs(gen, size=N0))
+            lpost = self.model.prior.logpdf(th)
+        x = ThetaParticles(theta=th, lpost=lpost)
         cal = self.move.calibrate(_uniform_weights(N0, _leaf(th)), x)
         return x.with_shared(acc_rate=_zero(_leaf(th)), **cal)
 
     def move_target(self, t, x):
         def target(xx):
-            return xx.replace(lpost=self.model.logpost(xx.theta, t=t - 1))
+            with tracing.span("model"):
+                lpost = self.model.logpost(xx.theta, t=t - 1)
+            return xx.replace(lpost=lpost)
 
         return target
 
     def logG_and_update(self, t, x, gen=None):
-        lpyt = self.model.logpyt(x.theta, t)
+        with tracing.span("model"):
+            lpyt = self.model.logpyt(x.theta, t)
         lpyt = torch.where(torch.isnan(lpyt), -torch.inf, lpyt)
         return lpyt, x.replace(lpost=x.lpost + lpyt)
 
@@ -837,10 +844,11 @@ class Tempering(FKSMCsampler):
         return self.exponents.shape[0]
 
     def _M0(self, gen, N0):
-        th = dict(self.model.prior.rvs(gen, size=N0))
-        lprior = self.model.prior.logpdf(th)
-        x = ThetaParticles(theta=th, lprior=lprior,
-                           llik=self.model.loglik(th), lpost=lprior)
+        with tracing.span("model"):
+            th = dict(self.model.prior.rvs(gen, size=N0))
+            lprior = self.model.prior.logpdf(th)
+            llik = self.model.loglik(th)
+        x = ThetaParticles(theta=th, lprior=lprior, llik=llik, lpost=lprior)
         like = _leaf(th)
         cal = self.move.calibrate(_uniform_weights(N0, like), x)
         return x.with_shared(exponent=_zero(like), path_sampling=_zero(like),
@@ -848,8 +856,9 @@ class Tempering(FKSMCsampler):
 
     def current_target(self, epn):
         def target(xx):
-            lprior = self.model.prior.logpdf(xx.theta)
-            llik = self.model.loglik(xx.theta)
+            with tracing.span("model"):
+                lprior = self.model.prior.logpdf(xx.theta)
+                llik = self.model.loglik(xx.theta)
             lpost = lprior + torch.where(epn > 0.0, epn * llik, 0.0)
             return xx.replace(lprior=lprior, llik=llik, lpost=lpost)
 
@@ -935,7 +944,8 @@ class AdaptiveTempering(Tempering):
             return True
         if smc.X is None:
             return False
-        return bool(smc.X.shared["exponent"] >= 1.0)
+        with tracing.sync("done"):
+            return bool(smc.X.shared["exponent"] >= 1.0)
 
     def time_to_resample(self, view):
         return True
@@ -945,7 +955,8 @@ class AdaptiveTempering(Tempering):
         # on every rank under sharding
         epn = x.shared["exponent"]
         llik_all = _gather_global(x.llik)
-        new_epn = next_annealing_epn(epn, self.ESSrmin, llik_all)
+        with tracing.span("sampler.epn_search"):
+            new_epn = next_annealing_epn(epn, self.ESSrmin, llik_all)
         return self._logG_tempering(x, new_epn - epn, new_epn, llik_all)
 
 
@@ -1092,7 +1103,11 @@ class SMC2(FKSMCsampler):
         if self.ar_to_increase_Nx <= 0.0 or smc.t == 0 or not smc.rs_flag:
             return
         acc = smc.X.shared.get("acc_rate")
-        acc = 1.0 if acc is None else float(acc)     # the host read
+        if acc is None:
+            acc = 1.0
+        else:
+            with tracing.sync("smc2_acc"):
+                acc = float(acc)        # the host read
         if acc >= self.ar_to_increase_Nx:
             return
         carry = smc._carry
@@ -1194,7 +1209,8 @@ def _sampler_step(fk, gen, carry, t, N, scheme, ESSrmin, draws=None):
     if getattr(fk, "always_resample", False):
         rs_flag = True
     else:
-        rs_flag = bool(fk.time_to_resample(view))   # the step's host sync
+        with tracing.sync("decide"):
+            rs_flag = bool(fk.time_to_resample(view))   # the step's host sync
     if rs_flag:
         Xc = X.with_shared(**fk.move.calibrate(wgts.W, X))
         if ctx is not None:

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from particles_tpu_torch import kalman, ops
+from particles_tpu_torch import kalman, ops, tracing
 from particles_tpu_torch import state_space_models as ssms
 from particles_tpu_torch.core import SMC, multiSMC
 from test_torch_kernel_models import (B2_KINDS, B3_KINDS, B4_KINDS,
@@ -24,6 +24,13 @@ from test_torch_kernel_models import (B2_KINDS, B3_KINDS, B4_KINDS,
                                       _weights)
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches():
+    """Each kernel's launches so far: ``tracing``'s ``launch.<kernel>``
+    for every kernel of ``ops.KERNELS``."""
+    counts = tracing.counts()
+    return {k: counts.get("launch." + k, 0) for k in ops.KERNELS}
 
 
 @pytest.fixture
@@ -46,9 +53,9 @@ def test_systematic_z_kernel_matches_plain(dev, N, alpha):
     W = torch.from_numpy(_weights_dirichlet(N, alpha, N)).to(dev)
     for u in (0.0, 0.37, 0.999):
         ut = torch.tensor(u, dtype=torch.float32, device=dev)
-        before = ops.systematic_z_fused.launches
+        before = _launches()["systematic_z"]
         z = ops.systematic_z_fused(W, ut, N)
-        assert ops.systematic_z_fused.launches == before + 1
+        assert _launches()["systematic_z"] == before + 1
         zp = ops.systematic_z_plain(W, ut, N)
         torch.cuda.synchronize()
         assert z.dtype == torch.int32 and z.shape == (N,)
@@ -67,9 +74,9 @@ def test_repeat_kernel_matches_plain(dev, N, M):
             torch.randn(N, 2, device=dev, dtype=torch.float64),
             torch.randint(0, 2, (N,), device=dev).bool()]
     cols += [torch.randn(N, device=dev) for _ in range(ops.MAX_PAYLOADS)]
-    before = ops.repeat_cols.launches
+    before = _launches()["repeat_by_z"]
     served, A = ops.repeat_cols(z, M, cols, want_anc=True)
-    assert ops.repeat_cols.launches == before + 2   # 12 payloads, 8 a launch
+    assert _launches()["repeat_by_z"] == before + 2   # 12 payloads, 8 a launch
     ref, A_ref = ops.repeat_cols_plain(z, M, cols, want_anc=True)
     torch.cuda.synchronize()
     assert torch.equal(A, A_ref)
@@ -105,7 +112,7 @@ def test_repeat_kernel_strained_counts(dev, kind):
 
 
 def test_wrappers_check_before_launching(dev):
-    before = (ops.systematic_z_fused.launches, ops.repeat_cols.launches)
+    before = (_launches()["systematic_z"], _launches()["repeat_by_z"])
     with pytest.raises(TypeError):
         ops.systematic_z_fused(torch.ones(8, device=dev, dtype=torch.float64),
                                0.5, 8)
@@ -115,8 +122,8 @@ def test_wrappers_check_before_launching(dev):
     with pytest.raises(TypeError):
         ops.repeat_cols(z, 8, [torch.zeros(8, device=dev,
                                            dtype=torch.complex128)])
-    assert ops.systematic_z_fused.launches == before[0] + 1
-    assert ops.repeat_cols.launches == before[1]
+    assert _launches()["systematic_z"] == before[0] + 1
+    assert _launches()["repeat_by_z"] == before[1]
 
 
 @pytest.mark.parametrize("N", [1, 7, 1000, 65539])
@@ -125,9 +132,9 @@ def test_normalised_cumsum_kernel_matches_plain(dev, N, alpha):
     """Monotone, top within 1e-6 of 1, and within N 2^-31 + 1e-6 of the
     plain version (the sum S is taken in another order)."""
     W = torch.from_numpy(_weights_dirichlet(N, alpha, N + 2)).to(dev)
-    before = ops.normalised_cumsum_exact.launches
+    before = _launches()["normalised_cumsum"]
     cs = ops.normalised_cumsum_exact(W)
-    assert ops.normalised_cumsum_exact.launches == before + 1
+    assert _launches()["normalised_cumsum"] == before + 1
     cp = ops.normalised_cumsum_plain(W)
     torch.cuda.synchronize()
     assert cs.dtype == torch.float32 and cs.shape == (N,)
@@ -165,7 +172,7 @@ def test_normalised_cumsum_kernel_beyond_shared_memory(dev):
     _check_cumsum(_weights_dirichlet(2 ** 24), dev)
 
 
-def _one_cooperative_launch(monkeypatch, mod, fn, wrapper, call):
+def _one_cooperative_launch(monkeypatch, mod, fn, call):
     """``call`` runs one CUDA kernel; with the library's ``fn`` refusing
     the launch (720, cudaErrorCooperativeLaunchTooLarge), it raises and
     counts nothing (no fallback to the plain version)."""
@@ -182,10 +189,10 @@ def _one_cooperative_launch(monkeypatch, mod, fn, wrapper, call):
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     assert kernels == 5
     monkeypatch.setattr(mod._kernels(), fn, lambda *a: 720)
-    before = wrapper.launches
+    before = _launches()
     with pytest.raises(RuntimeError, match="error 720"):
         call()
-    assert wrapper.launches == before
+    assert _launches() == before
 
 
 def test_normalised_cumsum_is_one_cooperative_launch(dev, monkeypatch):
@@ -195,7 +202,6 @@ def test_normalised_cumsum_is_one_cooperative_launch(dev, monkeypatch):
 
     W = torch.from_numpy(_weights_dirichlet(2 ** 20, 1.0, 3)).to(dev)
     _one_cooperative_launch(monkeypatch, z_kernel, "pt_normalised_cumsum",
-                            ops.normalised_cumsum_exact,
                             lambda: ops.normalised_cumsum_exact(W))
 
 
@@ -207,7 +213,6 @@ def test_systematic_z_is_one_cooperative_launch(dev, monkeypatch):
     W = torch.from_numpy(_weights_dirichlet(2 ** 20, 1.0, 3)).to(dev)
     u = torch.tensor(0.37, device=dev)
     _one_cooperative_launch(monkeypatch, z_kernel, "pt_systematic_z",
-                            ops.systematic_z_fused,
                             lambda: ops.systematic_z_fused(W, u, 2 ** 20))
 
 
@@ -219,7 +224,7 @@ def test_running_max_is_one_cooperative_launch(dev, monkeypatch):
     z = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 ** 20,), device=dev,
                       dtype=torch.int32)
     _one_cooperative_launch(monkeypatch, cummax_kernel, "pt_running_max",
-                            ops.running_max, lambda: ops.running_max(z))
+                            lambda: ops.running_max(z))
 
 
 def test_one_launch_scans_share_a_geometry(dev):
@@ -315,10 +320,10 @@ def _check_su_move(su, cs, dev, cols=None):
     payloads, and ancestors alone."""
     N, M = cs.shape[0], su.shape[0]
     cols = _su_payloads(N, dev) if cols is None else cols
-    before = ops.repeat_cols_su.launches
+    before = _launches()["repeat_by_su"]
     served, A = ops.repeat_cols_su(su, cs, M, cols, want_anc=True)
     A_only = ops.ancestors_by_su(su, cs)
-    assert ops.repeat_cols_su.launches == before + 2
+    assert _launches()["repeat_by_su"] == before + 2
     ref, A_ref = ops.repeat_cols_su_plain(su, cs, M, cols, want_anc=True)
     torch.cuda.synchronize()
     assert A.dtype == torch.int64
@@ -404,9 +409,9 @@ def test_merge_rank_kernel_matches_plain(dev, N, L, M):
     tied = torch.cat([su[: L // 2], cs[torch.randint(0, N, (L - L // 2,),
                                                      device=dev)]])
     for s in (su.sort().values, tied.sort().values):
-        before = ops.merge_rank_counts.launches
+        before = _launches()["merge_rank_counts"]
         z = ops.merge_rank_counts(s, cs, M)
-        assert ops.merge_rank_counts.launches == before + 1
+        assert _launches()["merge_rank_counts"] == before + 1
         zp = ops.merge_rank_counts_plain(s, cs, M)
         torch.cuda.synchronize()
         assert z.dtype == torch.int32 and torch.equal(z, zp)
@@ -455,22 +460,22 @@ def test_trimmed_wrappers_raise_on_a_refused_launch(dev, monkeypatch):
     W = torch.full((1000,), 1e-3, device=dev)
     cs = ops.normalised_cumsum_exact(W)
     zi = torch.arange(1000, device=dev, dtype=torch.int32)
-    calls = [(z_kernel, "pt_systematic_z", ops.systematic_z_fused,
+    calls = [(z_kernel, "pt_systematic_z",
               lambda: ops.systematic_z_fused(W, 0.5, 1000)),
-             (merge_rank_kernel, "pt_merge_rank_counts", ops.merge_rank_counts,
+             (merge_rank_kernel, "pt_merge_rank_counts",
               lambda: ops.merge_rank_counts(cs, cs, 1000)),
-             (repeat_kernel, "pt_repeat_by_su", ops.repeat_cols_su,
+             (repeat_kernel, "pt_repeat_by_su",
               lambda: ops.ancestors_by_su(cs, cs)),
-             (cummax_kernel, "pt_running_max", ops.running_max,
+             (cummax_kernel, "pt_running_max",
               lambda: ops.running_max(zi))]
-    for mod, fn, wrapper, call in calls:
+    for mod, fn, call in calls:
         call()
         lib = mod._kernels()
         monkeypatch.setattr(lib, fn, lambda *a: 720)
-        before = wrapper.launches
+        before = _launches()
         with pytest.raises(RuntimeError, match="error 720"):
             call()
-        assert wrapper.launches == before
+        assert _launches() == before
         monkeypatch.undo()
 
 
@@ -479,9 +484,9 @@ def test_running_max_kernel_matches_plain(dev, N):
     """Exact on negative values and unaligned N."""
     z = torch.randint(-2 ** 31, 2 ** 31 - 1, (N,), device=dev,
                       dtype=torch.int32)
-    before = ops.running_max.launches
+    before = _launches()["running_max"]
     y = ops.running_max(z)
-    assert ops.running_max.launches == before + 1
+    assert _launches()["running_max"] == before + 1
     torch.cuda.synchronize()
     assert y.dtype == torch.int32
     assert torch.equal(y, ops.running_max_plain(z))
@@ -523,12 +528,12 @@ def test_bootstrap_filter_on_the_card(dev):
     ssm = kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2)
     kf = float(kalman.Kalman(ssm=ssm,
                              data=torch.from_numpy(y.astype(np.float64))).logLt)
-    ops.systematic_z_fused.launches = ops.repeat_cols.launches = 0
+    tracing.reset()
     pf = SMC(fk=ssms.Bootstrap(ssm=ssm, data=torch.from_numpy(y).to(dev)),
              N=N, seed=0)
     pf.run()
     n_rs = int(pf.summaries.rs_flags.sum())
-    assert ops.systematic_z_fused.launches == ops.repeat_cols.launches == n_rs
+    assert _launches()["systematic_z"] == _launches()["repeat_by_z"] == n_rs
     assert pf.X.device.type == "cuda"
     assert abs(float(pf.logLt) - kf) < 0.5
 
@@ -559,12 +564,11 @@ def test_every_scheme_on_the_card(dev):
     seen = []
 
     def out(res):
-        seen.append({k: f.launches for k, f in ops.KERNELS.items()})
+        seen.append(_launches())
         return res
 
-    for f in ops.KERNELS.values():
-        f.launches = 0
-    seen.append({k: 0 for k in ops.KERNELS})
+    tracing.reset()
+    seen.append(_launches())
     runs = multiSMC(fk=fk, N=N, resampling=list(expected), nruns=1,
                     out_func=out)
     for k, entry in enumerate(runs):
@@ -639,12 +643,12 @@ def test_smoothers_draw_through_the_kernels(dev):
                          .astype(np.float32)).to(dev)
     fk = ssms.Bootstrap(ssm=ssm, data=y)
     N = 4096
-    b2 = ops.repeat_cols.launches
+    b2 = _launches()["repeat_by_z"]
     pf = SMC(fk=fk, N=N, seed=1, store_history=True,
              collect=[col.Paris(Nparis=2, max_trials=8)])
     pf.run()
     n_rs = int(pf.summaries.rs_flags.sum())
-    assert ops.repeat_cols.launches - b2 == n_rs
+    assert _launches()["repeat_by_z"] - b2 == n_rs
     A = pf.hist.A
     assert A.device == dev and A.dtype == torch.int64 and A.shape == (12, N)
     for t in range(1, 12):
@@ -660,11 +664,11 @@ def test_smoothers_draw_through_the_kernels(dev):
              lambda: 1 + sum(pf.hist.rounds)),
             ("ON2", lambda: pf.hist.backward_sampling_ON2(gen, 512),
              lambda: 1, lambda: 1)):
-        b3 = ops.normalised_cumsum_exact.launches
-        b4 = ops.repeat_cols_su.launches
+        b3 = _launches()["normalised_cumsum"]
+        b4 = _launches()["repeat_by_su"]
         paths = call()
-        n3 = ops.normalised_cumsum_exact.launches - b3
-        n4 = ops.repeat_cols_su.launches - b4
+        n3 = _launches()["normalised_cumsum"] - b3
+        n4 = _launches()["repeat_by_su"] - b4
         assert (n3, n4) == (cdfs(), draws()), (name, n3, n4)
         assert paths.device == dev and torch.isfinite(paths).all(), name
     W = pf.hist.wgts.W
@@ -688,7 +692,7 @@ def test_guided_and_auxiliary_steps_sync_only_on_the_decision(dev, fk_cls):
     fk = Always(ssm=kalman.LinearGauss(rho=0.9, sigmaX=1.0, sigmaY=0.2),
                 data=y)
     for scheme in ("systematic", "killing"):
-        b1 = ops.systematic_z_fused.launches
+        b1 = _launches()["systematic_z"]
         pf = SMC(fk=fk, N=2 ** 15, resampling=scheme, seed=0)
         next(pf)
         torch.cuda.synchronize()
@@ -700,7 +704,7 @@ def test_guided_and_auxiliary_steps_sync_only_on_the_decision(dev, fk_cls):
             torch.cuda.set_sync_debug_mode("default")
         assert pf.t == 5 and pf.rs_flag is True
         assert torch.isfinite(pf.logLt)
-        assert (ops.systematic_z_fused.launches - b1
+        assert (_launches()["systematic_z"] - b1
                 == (4 if scheme == "systematic" else 0))
 
 
@@ -778,14 +782,15 @@ def test_sqmc_steps_sync_never(dev, fk_cls, dx):
         pf = SMC(fk=fk, N=N, qmc=True, seed=0, **opts)
         next(pf)
         torch.cuda.synchronize()
-        before = {k: f.launches for k, f in ops.KERNELS.items()}
+        before = _launches()
         torch.cuda.set_sync_debug_mode("error")
         try:
             for _ in pf:
                 pass
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        n = {k: f.launches - before[k] for k, f in ops.KERNELS.items()}
+        after = _launches()
+        n = {k: after[k] - before[k] for k in ops.KERNELS}
         want = {k: 5 if k in ("normalised_cumsum", "repeat_by_su") else 0
                 for k in ops.KERNELS}
         assert n == want, (N, opts, n)
@@ -835,12 +840,12 @@ def test_qmc_ffbs_on_the_card(dev):
     pf = SMC(fk=ssms.Bootstrap(ssm=ssm, data=torch.from_numpy(y).to(dev)),
              N=2 ** 12, qmc=True, store_history=True, seed=1)
     pf.run()
-    b3 = ops.normalised_cumsum_exact.launches
-    b4 = ops.repeat_cols_su.launches
+    b3 = _launches()["normalised_cumsum"]
+    b4 = _launches()["repeat_by_su"]
     paths = pf.hist.backward_sampling_qmc(
         torch.Generator(device=dev).manual_seed(2), 2 ** 10)
-    assert ops.normalised_cumsum_exact.launches - b3 == 1
-    assert ops.repeat_cols_su.launches - b4 == 1
+    assert _launches()["normalised_cumsum"] - b3 == 1
+    assert _launches()["repeat_by_su"] - b4 == 1
     assert paths.device == dev and bool(torch.isfinite(paths).all())
     np.testing.assert_allclose(paths.mean(1).cpu().numpy(),
                                kf.smth.mean[:, 0].numpy(), atol=0.15)
@@ -893,7 +898,7 @@ def test_sampler_steps_sync_only_on_the_declared_read(dev, cls):
     gen = torch.Generator(device=dev).manual_seed(0)
     carry, _ = ssp._sampler_step0(fk, gen, N)
     torch.cuda.synchronize()
-    b1, b2 = ops.systematic_z_fused.launches, ops.repeat_cols.launches
+    b1, b2 = _launches()["systematic_z"], _launches()["repeat_by_z"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         for t in range(1, 4):
@@ -902,8 +907,8 @@ def test_sampler_steps_sync_only_on_the_declared_read(dev, cls):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert view.rs_flag is True and carry.X.N == 4 * N
-    assert ops.systematic_z_fused.launches - b1 == 3
-    assert ops.repeat_cols.launches - b2 == 3
+    assert _launches()["systematic_z"] - b1 == 3
+    assert _launches()["repeat_by_z"] - b2 == 3
     assert bool(torch.isfinite(carry.logLt))
 
 
@@ -963,9 +968,9 @@ def test_wastefree_resample_kernels_match_plain(dev):
     x = ssp.ThetaParticles(theta=theta, lpost=torch.randn(N0, device=dev),
                            lprior=torch.randn(N0, device=dev),
                            llik=torch.randn(N0, device=dev))
-    before = ops.repeat_cols.launches
+    before = _launches()["repeat_by_z"]
     served = x.subset_by_z(z, M)
-    assert ops.repeat_cols.launches - before == 2      # 12 leaves
+    assert _launches()["repeat_by_z"] - before == 2      # 12 leaves
     leaves, _ = x._leaves()
     want, _ = ops.repeat_cols_plain(z, M, leaves)
     got, _ = served._leaves()
@@ -982,25 +987,33 @@ def test_samplers_on_the_card(dev):
     model, exact = _conjugate_sampler_model(dev)
     for fk in (ssp.IBIS(model=model, len_chain=8),
                ssp.AdaptiveTempering(model=model, len_chain=8)):
-        before = {k: f.launches for k, f in ops.KERNELS.items()}
+        before = _launches()
         pf = SMC(fk=fk, N=2 ** 11, seed=0)
         pf.run()
         n_rs = int(pf.summaries.rs_flags.sum())
         assert pf.X.theta["mu"].device == dev and n_rs > 0
         assert abs(float(pf.logLt) - exact) < 0.5
-        for k, f in ops.KERNELS.items():
+        after = _launches()
+        for k in ops.KERNELS:
             want = n_rs if k in ("systematic_z", "repeat_by_z") else 0
-            assert f.launches - before[k] == want, (type(fk), k)
+            assert after[k] - before[k] == want, (type(fk), k)
 
 
 # ---------------------------------------------------------------------------
 # the outer loops: PMMH, CSMC, SMC², the checkpoint
 # ---------------------------------------------------------------------------
 
+def _sync_count():
+    return sum(v for k, v in tracing.counts().items()
+               if k.startswith("sync."))
+
+
 def _count_syncs(fn):
-    """(fn(), host syncs under set_sync_debug_mode("warn"))."""
+    """(fn(), host syncs under set_sync_debug_mode("warn")); ``tracing``
+    counted each of them as one ``sync.<site>``."""
     import warnings
 
+    counted = _sync_count()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1008,8 +1021,10 @@ def _count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("called a synchronizing CUDA operation" in str(w.message)
-                    for w in caught)
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    assert _sync_count() - counted == syncs
+    return out, syncs
 
 
 def test_pmmh_chain_loop_syncs_never(dev):
@@ -1027,7 +1042,7 @@ def test_pmmh_chain_loop_syncs_never(dev):
     m = mcmc.PMMH(ssm_cls=ssms.StochVol, prior=prior,
                   data=torch.from_numpy(y).to(dev), Nx=64, niter=20,
                   nchains=4, seed=1)
-    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    before = _launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         m._chain()
@@ -1036,7 +1051,7 @@ def test_pmmh_chain_loop_syncs_never(dev):
     m._finish()
     assert m.chain.theta["rho"].shape == (20, 4)
     assert torch.isfinite(m.chain.lpost).all()
-    assert all(f.launches == before[k] for k, f in ops.KERNELS.items())
+    assert _launches() == before
 
 
 def test_csmc_steps_sync_never(dev):
@@ -1051,16 +1066,17 @@ def test_csmc_steps_sync_never(dev):
     xstar = torch.linspace(-1.0, 1.0, T, device=dev)
     cpf = mcmc.CSMC(fk=ssms.Bootstrap(ssm=ssm, data=y), N=N, xstar=xstar,
                     seed=2)
-    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    before = _launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         cpf._run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    for k, f in ops.KERNELS.items():
+    after = _launches()
+    for k in ops.KERNELS:
         want = T - 1 if k in ("running_max", "normalised_cumsum",
                               "merge_rank_counts", "repeat_by_z") else 0
-        assert f.launches - before[k] == want, k
+        assert after[k] - before[k] == want, k
     assert torch.equal(cpf.hist.X[:, 0], xstar)
     assert bool((cpf.hist.A[:, 0] == 0).all())
 
@@ -1085,7 +1101,7 @@ def test_smc2_step_syncs_once_plus_the_exchange_read(dev):
     pf = SMC(fk=fk, N=512, seed=3)
     next(pf)
     torch.cuda.synchronize()
-    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    before = _launches()
 
     def rest():
         for _ in pf:
@@ -1096,9 +1112,10 @@ def test_smc2_step_syncs_once_plus_the_exchange_read(dev):
     n_rs = sum(flags)
     assert n_rs > 0 and len(fk.exchanges) == sum(flags[1:-1])
     assert syncs == (len(flags) - 1) + sum(flags[1:-1])
-    for k, f in ops.KERNELS.items():
+    after = _launches()
+    for k in ops.KERNELS:
         want = n_rs if k in ("systematic_z", "repeat_by_z") else 0
-        assert f.launches - before[k] == want, k
+        assert after[k] - before[k] == want, k
     assert torch.isfinite(pf.logLt)
 
 
@@ -1139,9 +1156,9 @@ def test_repeat_kernel_serves_bool_rows(dev):
     cols = [gamma, torch.randn(N0, device=dev), torch.randn(N0, device=dev)]
     z = torch.from_numpy(np.cumsum(rng.multinomial(
         M, rng.dirichlet(np.ones(N0)))).astype(np.int32)).to(dev)
-    before = ops.repeat_cols.launches
+    before = _launches()["repeat_by_z"]
     served, _ = ops.repeat_cols(z, M, cols)
-    assert ops.repeat_cols.launches == before + 1
+    assert _launches()["repeat_by_z"] == before + 1
     plain, _ = ops.repeat_cols_plain(z, M, cols)
     torch.cuda.synchronize()
     assert served[0].dtype == torch.bool and served[0].shape == (M, 103)
@@ -1172,7 +1189,7 @@ def test_binary_sampler_on_the_card(dev):
              N=100, seed=1)
     next(pf)
     torch.cuda.synchronize()
-    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    before = _launches()
 
     def rest():
         for _ in pf:
@@ -1181,9 +1198,10 @@ def test_binary_sampler_on_the_card(dev):
     _, syncs = _count_syncs(rest)
     n_rs = int(pf.summaries.rs_flags.sum())
     assert syncs == pf.t and n_rs == pf.t - 1
-    for k, f in ops.KERNELS.items():
+    after = _launches()
+    for k in ops.KERNELS:
         want = n_rs if k in ("systematic_z", "repeat_by_z") else 0
-        assert f.launches - before[k] == want, k
+        assert after[k] - before[k] == want, k
     assert pf.X.theta["gamma"].dtype == torch.bool
     W = pf.wgts.W.double()
     est = (W[:, None] * pf.X.theta["gamma"].double()).sum(0)
@@ -1235,7 +1253,7 @@ def test_nested_sampling_on_the_card(dev):
                                          ESSrmin=0.3), N=256, seed=2)
     next(pf)
     torch.cuda.synchronize()
-    before = {k: f.launches for k, f in ops.KERNELS.items()}
+    before = _launches()
 
     def rest():
         for _ in pf:
@@ -1243,9 +1261,10 @@ def test_nested_sampling_on_the_card(dev):
 
     _, syncs = _count_syncs(rest)
     assert syncs == pf.t and float(pf.X.shared["lt"]) == np.inf
-    for k, f in ops.KERNELS.items():
+    after = _launches()
+    for k in ops.KERNELS:
         want = pf.t - 1 if k in ("systematic_z", "repeat_by_z") else 0
-        assert f.launches - before[k] == want, k
+        assert after[k] - before[k] == want, k
     assert abs(float(pf.X.shared["log_evid"]) - exact) < 1.0
 
 

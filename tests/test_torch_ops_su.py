@@ -21,7 +21,7 @@ import particles_tpu.ops.merge_rank_kernel as mk
 import particles_tpu.ops.repeat_kernel as rk
 import particles_tpu.ops.z_kernel as zk
 import particles_tpu.resampling as jrs
-from particles_tpu_torch import ops
+from particles_tpu_torch import ops, tracing
 
 
 @pytest.fixture
@@ -216,12 +216,12 @@ def test_repeat_su_wrapper_contract():
         ops.merge_rank_counts(u, cs.to(torch.int32), 8)
     with pytest.raises(ValueError, match="no kernel"):
         ops.merge_rank_counts(u.to("meta"), cs.to("meta"), 8)
-    n = {name: f.launches for name, f in ops.KERNELS.items()}
+    n = tracing.counts()
     ops.repeat_cols_su(u, cs, 8, [torch.zeros(8)], want_anc=True)
     ops.merge_rank_counts(u, cs, 8)
     ops.normalised_cumsum_exact(cs)
     ops.running_max(torch.zeros(8, dtype=torch.int32))
-    assert n == {name: f.launches for name, f in ops.KERNELS.items()}
+    assert tracing.counts() == n
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ import torch
 import torch.distributed as dist
 
 from particles_tpu_torch import collectors as col
-from particles_tpu_torch import convert, kalman, mcmc, nested, ops
+from particles_tpu_torch import convert, kalman, mcmc, nested, ops, tracing
 from particles_tpu_torch import smc_samplers as ssp
 from particles_tpu_torch import distributions as dists
 from particles_tpu_torch import state_space_models as ssms
@@ -45,8 +45,26 @@ class GaussTarget(ssp.StaticModel):
         return -0.5 * np.log(2 * np.pi) - 0.5 * (self.data[t] - theta["m"]) ** 2
 
 
+def _counted(prefix, names):
+    counts = tracing.counts()
+    return {k: counts.get(prefix + k, 0) for k in names}
+
+
 def _launches():
-    return {name: f.launches for name, f in ops.KERNELS.items()}
+    """Each kernel's launches so far (``launch.<kernel>``)."""
+    return _counted("launch.", ops.KERNELS)
+
+
+def _calls():
+    """Each collective's calls so far (``comm.<name>``)."""
+    return _counted("comm.", comm.COLLECTIVES)
+
+
+def _since(before):
+    """The collectives' calls since ``before``, a reading of
+    :func:`_calls`."""
+    now = _calls()
+    return {k: now[k] - before[k] for k in now}
 
 
 def _rings(device, inp, group=None):
@@ -89,10 +107,10 @@ def _engine(device, inp):
     y, N = inp["y"], inp["N"]
 
     def run(tag, fk, **kw):
-        comm.reset_calls()
+        calls = _calls()
         res = distributed.run_shardmap_smc(fk, N, **kw)
         out[tag] = {"logLt": float(res.logLt), "rs_flags": res.rs_flags,
-                    "ESSs": res.ESSs, "calls": dict(comm.calls)}
+                    "ESSs": res.ESSs, "calls": _since(calls)}
         return res
 
     for name in FILTERS:
@@ -127,10 +145,10 @@ def _ffbs(device, inp):
     fk = ssms.Bootstrap(ssm=ssm, data=inp["y_smooth"], device=device)
     res = distributed.run_shardmap_smc(fk, inp["N_smooth"], seed=1,
                                        store_history=True)
-    comm.reset_calls()
+    calls = _calls()
     paths = distributed.sharded_backward_mcmc(res.hist, inp["M_smooth"],
                                               seed=3, nsteps=2)
-    return {"paths": paths, "calls": dict(comm.calls), "X": res.hist.X,
+    return {"paths": paths, "calls": _since(calls), "X": res.hist.X,
             "A": res.hist.A, "lw": res.hist.lw}
 
 
@@ -198,10 +216,10 @@ def _dqmc(device, inp):
     def sl(a):
         return convert.rank_slice(a, d, D, device)
 
-    comm.reset_calls()
+    calls = _calls()
     key, (idx, x) = dqmc.dist_sort_with(
         sl(inp["sort_keys"]), (sl(inp["sort_idx"]), sl(inp["sort_x"])))
-    out = {"sort": (key, idx, x), "sort_calls": dict(comm.calls)}
+    out = {"sort": (key, idx, x), "sort_calls": _since(calls)}
     hx = sl(inp["hx"])
     m, sd = dqmc._dist_moments(hx)
     out["keys"] = (dqmc._dist_hilbert_keys(hx), m, sd)
@@ -224,12 +242,12 @@ def _sqmc(device, inp):
     for name in ("Bootstrap", "GuidedPF", "AuxiliaryPF"):
         fk = getattr(ssms, name)(ssm=ssm, data=y, device=device)
         for seed in SEEDS:
-            comm.reset_calls()
+            calls = _calls()
             res = distributed.run_shardmap_smc(fk, N, seed=seed, qmc=True)
             out[f"{name}_{seed}"] = {"logLt": float(res.logLt),
                                      "ESSs": res.ESSs,
                                      "rs_flags": res.rs_flags,
-                                     "calls": dict(comm.calls)}
+                                     "calls": _since(calls)}
     boot = ssms.Bootstrap(ssm=ssm, data=y, device=device)
     res = distributed.run_shardmap_smc(boot, N, seed=11, qmc=True)
     out["same_seed"] = {"logLt": float(res.logLt), "ESSs": res.ESSs}
@@ -308,13 +326,13 @@ def _meshes(device, inp):
     for scheme, seeds in (("ssp", SEEDS), ("residual", (0,)),
                           ("killing", (0,))):
         for seed in seeds:
-            comm.reset_calls()
+            calls = _calls()
             res, raw = sharded.run_sharded_smc(
                 fk, inp["N"], seed=seed, mesh=mesh, resampling=scheme,
                 store_history=seed == 0)
             out[f"{scheme}_{seed}"] = {
                 "logLt": float(res.logLt), "rs_flags": res.rs_flags,
-                "calls": dict(comm.calls),
+                "calls": _since(calls),
                 "A": None if raw is None else raw[1]}
     res, _ = sharded.run_sharded_smc(fk, SQMC_N, seed=0, mesh=mesh,
                                      qmc=True)

@@ -32,13 +32,14 @@ import torch  # noqa: E402
 import particles_tpu_torch  # noqa: E402
 from chip_smoke import (N_SMOOTH, REJECT_TRIALS, T_SMOOTH,  # noqa: E402
                         _lg_smooth, _simulate_y)
-from particles_tpu_torch import SMC, collectors, kalman, ops  # noqa: E402
+from particles_tpu_torch import SMC, collectors, kalman, tracing  # noqa: E402
 from particles_tpu_torch import state_space_models as ssms  # noqa: E402
 
 
 def _counts():
-    return {"normalised_cumsum": ops.normalised_cumsum_exact.launches,
-            "repeat_by_su": ops.repeat_cols_su.launches}
+    counts = tracing.counts()
+    return {k: counts.get("launch." + k, 0)
+            for k in ("normalised_cumsum", "repeat_by_su")}
 
 
 def _timed(fn):
