@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from particles_tpu_torch import resampling as rs
+from particles_tpu_torch import tracing
 
 __all__ = ["InnerPF", "BATCHED_SCHEMES", "ROW_LOOP_SCHEMES"]
 
@@ -191,7 +192,8 @@ class InnerPF:
 
     def _eval(self, what, f, *args):
         try:
-            out = f(*args)
+            with tracing.span("model"):
+                out = f(*args)
         except (TypeError, ValueError, RuntimeError) as e:
             raise self._not_batched(f"{what}: {e}") from e
         return self._check(what, out, self.B * self.Nx)
@@ -222,12 +224,19 @@ class InnerPF:
 
     # -- the filter ----------------------------------------------------------
 
+    def _counted(self, t):
+        """The span of one inner step of every row at time t, counted."""
+        tracing.count("smc2.inner_steps")
+        tracing.count("smc2.inner_particle_steps", self.B * self.Nx)
+        return tracing.span("smc2.inner", t=t)
+
     def init_with(self, move0):
         """Time 0 from the initial particles ``move0(fk)``."""
-        x0 = self._eval("M0", move0, self.fk)
-        lw0 = self._eval("logG", self.fk.logG, 0, None, x0)
-        lw0 = lw0.reshape(self.B, self.Nx)
-        return self._shape(x0), lw0, self._keep(lw0)[2]
+        with self._counted(0):
+            x0 = self._eval("M0", move0, self.fk)
+            lw0 = self._eval("logG", self.fk.logG, 0, None, x0)
+            lw0 = lw0.reshape(self.B, self.Nx)
+            return self._shape(x0), lw0, self._keep(lw0)[2]
 
     def init(self, gen):
         return self.init_with(self.draws0(gen))
@@ -255,33 +264,35 @@ class InnerPF:
 
     def step_with(self, t, xs, lws, rs_draw, move):
         """One step at time t >= 1 given its draws: ``(xs, lws, loglt)``."""
-        B, Nx, fk = self.B, self.Nx, self.fk
-        X = xs.reshape((B * Nx,) + xs.shape[2:])
-        W, ESS, lm = self._weights(lws)
-        if self.isAPF:
-            logeta = self._eval("logeta", fk.logeta, t - 1, X).reshape(B, Nx)
-            Wa, ESSa, _ = _rows(lws + logeta)
-        else:
-            Wa, ESSa = W, ESS
-        rs_flag = ESSa < self.ESSrmin * Nx                      # (B,)
-        pos, base = self._positions(lws.device)
-        A = ancestors_rows(self._z(Wa, rs_draw), pos)
-        Xr = X.index_select(0, (A + base).reshape(-1))
-        flag = rs_flag.reshape((B,) + (1,) * (xs.ndim - 1))
-        Xp = torch.where(flag, self._shape(Xr), xs).reshape(X.shape)
-        if self.isAPF:
-            reset = (_row_log_mean_exp(logeta, lws)[:, None]
-                     - self._eval("logeta", fk.logeta, t - 1, Xr).reshape(
-                         B, Nx))
-            lw_sel = torch.where(rs_flag[:, None], reset, lws)
-        else:
-            lw_sel = torch.where(rs_flag[:, None], 0.0, lws)
-        X_new = self._eval("M", move, fk, t, Xp)
-        lw_new = lw_sel + self._eval("logG", fk.logG, t, Xp,
-                                     X_new).reshape(B, Nx)
-        lm_new = self._keep(lw_new)[2]
-        loglt = torch.where(rs_flag, lm_new, lm_new - lm)
-        return self._shape(X_new), lw_new, loglt
+        with self._counted(t):
+            B, Nx, fk = self.B, self.Nx, self.fk
+            X = xs.reshape((B * Nx,) + xs.shape[2:])
+            W, ESS, lm = self._weights(lws)
+            if self.isAPF:
+                logeta = self._eval("logeta", fk.logeta, t - 1,
+                                    X).reshape(B, Nx)
+                Wa, ESSa, _ = _rows(lws + logeta)
+            else:
+                Wa, ESSa = W, ESS
+            rs_flag = ESSa < self.ESSrmin * Nx                      # (B,)
+            pos, base = self._positions(lws.device)
+            A = ancestors_rows(self._z(Wa, rs_draw), pos)
+            Xr = X.index_select(0, (A + base).reshape(-1))
+            flag = rs_flag.reshape((B,) + (1,) * (xs.ndim - 1))
+            Xp = torch.where(flag, self._shape(Xr), xs).reshape(X.shape)
+            if self.isAPF:
+                reset = (_row_log_mean_exp(logeta, lws)[:, None]
+                         - self._eval("logeta", fk.logeta, t - 1, Xr).reshape(
+                             B, Nx))
+                lw_sel = torch.where(rs_flag[:, None], reset, lws)
+            else:
+                lw_sel = torch.where(rs_flag[:, None], 0.0, lws)
+            X_new = self._eval("M", move, fk, t, Xp)
+            lw_new = lw_sel + self._eval("logG", fk.logG, t, Xp,
+                                         X_new).reshape(B, Nx)
+            lm_new = self._keep(lw_new)[2]
+            loglt = torch.where(rs_flag, lm_new, lm_new - lm)
+            return self._shape(X_new), lw_new, loglt
 
     def step(self, gen, t, xs, lws):
         return self.step_with(t, xs, lws, *self.draws(gen))

@@ -981,7 +981,9 @@ class _ReplayTarget:
         if gen is None:
             raise ValueError("SMC2's move target replays each θ's filter: "
                              "call it with a generator (its draws)")
-        with distctx.local_context():
+        tracing.count("smc2.replays")
+        with tracing.span("smc2.replay", t=self.t), \
+                distctx.local_context():
             xs, lws, ll = self.fk._inner(xx.theta, self.Nx).replay(gen,
                                                                    self.t)
         return xx.replace(xs=xs, lws=lws, loglik=ll,
@@ -1084,7 +1086,8 @@ class SMC2(FKSMCsampler):
     def _replay_all(self, gen, x, t, new_Nx):
         """Every θ-particle's filter run afresh with ``new_Nx`` particles
         over the observations 0..t-1: ``(xs, lws, loglik)``."""
-        with distctx.local_context():
+        tracing.count("smc2.replays")
+        with tracing.span("smc2.replay", t=t), distctx.local_context():
             return self._inner(x.theta, new_Nx).replay(gen, t)
 
     def maybe_exchange(self, smc):
@@ -1110,24 +1113,27 @@ class SMC2(FKSMCsampler):
                 acc = float(acc)        # the host read
         if acc >= self.ar_to_increase_Nx:
             return
-        carry = smc._carry
-        x = carry.X
-        new_Nx = 2 * x.xs.shape[1]
-        ctx = distctx.current()
-        xs, lws, ll_new = self._replay_all(
-            smc.gen if ctx is None else ctx.gen, x, smc.t, new_Nx)
-        delta = ll_new - x.loglik
-        x = x.replace(xs=xs, lws=lws, loglik=ll_new, lpost=x.lpost + delta)
-        new_lw = carry.lw + delta
-        new_wgts = rs.Weights(new_lw)
-        smc._carry = carry._replace(
-            X=x, lw=new_lw,
-            logLt=carry.logLt + new_wgts.log_mean - carry.log_mean_w,
-            log_mean_w=new_wgts.log_mean)
-        smc.X, smc.wgts, smc.logLt = x, new_wgts, smc._carry.logLt
-        self.exchanges.append((smc.t, new_Nx))
-        if smc.verbose:
-            print(f"t={smc.t}: exchange step, Nx -> {new_Nx}")
+        tracing.count("smc2.exchanges")
+        with tracing.span("smc2.exchange", t=smc.t):
+            carry = smc._carry
+            x = carry.X
+            new_Nx = 2 * x.xs.shape[1]
+            ctx = distctx.current()
+            xs, lws, ll_new = self._replay_all(
+                smc.gen if ctx is None else ctx.gen, x, smc.t, new_Nx)
+            delta = ll_new - x.loglik
+            x = x.replace(xs=xs, lws=lws, loglik=ll_new,
+                          lpost=x.lpost + delta)
+            new_lw = carry.lw + delta
+            new_wgts = rs.Weights(new_lw)
+            smc._carry = carry._replace(
+                X=x, lw=new_lw,
+                logLt=carry.logLt + new_wgts.log_mean - carry.log_mean_w,
+                log_mean_w=new_wgts.log_mean)
+            smc.X, smc.wgts, smc.logLt = x, new_wgts, smc._carry.logLt
+            self.exchanges.append((smc.t, new_Nx))
+            if smc.verbose:
+                print(f"t={smc.t}: exchange step, Nx -> {new_Nx}")
 
 
 # ---------------------------------------------------------------------------

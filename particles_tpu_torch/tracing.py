@@ -29,7 +29,20 @@ Span                                   Where
                                        model: ``M0``, ``M``, ``logG``,
                                        ``logeta``, ``Gamma0``, ``Gamma`` of a
                                        filter; a sampler's prior draws,
-                                       ``logpdf`` and ``loglik``
+                                       ``logpdf`` and ``loglik``; the inner
+                                       filters' ``M0``, ``M``, ``logG`` and
+                                       ``logeta`` (``InnerPF._eval``)
+``particles.smc2.inner``               one inner step of every row of an
+                                       ``InnerPF`` (``init_with``,
+                                       ``step_with``; ``t`` in its
+                                       arguments): SMC²'s forward steps and
+                                       replays, PMMH's filters
+``particles.smc2.replay``              one replay of every θ-particle's
+                                       filter over y_0..y_{t-1}: a move's
+                                       target (``_ReplayTarget``) or the
+                                       exchange step's (``SMC2._replay_all``)
+``particles.smc2.exchange``            the exchange step's work once it has
+                                       decided to double Nx
 ``particles.weights``                  ``resampling.Weights``: max, exp, sums,
                                        ``W``, ``ESS``, ``log_mean``
 ``particles.sampler.epn_search``       adaptive tempering's bisection for the
@@ -49,7 +62,11 @@ Counters are always on, one dictionary in this module (:func:`count`,
   ``ops.KERNELS`` keys them (``systematic_z``, ``repeat_by_z``, ...);
 - ``comm.<collective>``: calls of the collectives of
   :mod:`parallel.comm` (``pmax``, ``psum``, ``all_gather``,
-  ``ring_shift``, ``exchange``).
+  ``ring_shift``, ``exchange``);
+- ``smc2.inner_steps`` and ``smc2.inner_particle_steps``: the inner steps
+  of ``InnerPF`` (one a ``particles.smc2.inner`` span) and B·Nx summed
+  over them; ``smc2.replays`` and ``smc2.exchanges``: SMC²'s replays and
+  exchange steps.
 """
 
 from __future__ import annotations

@@ -186,3 +186,83 @@ def test_results_are_bit_identical_with_the_profiler(tmp_path):
     traced, _ = _profiled(tmp_path, run)
     assert torch.equal(plain[0], traced[0])
     assert torch.equal(plain[1], traced[1])
+
+
+def _smc2(T=8, ar=0.99):
+    """A tiny SMC² of stochastic volatility with leverage; ``ar`` 0.99 makes
+    the exchange step fire after every resample-move."""
+    y = np.random.default_rng(2).normal(scale=0.5, size=T).astype(np.float32)
+    prior = dists.StructDist({"mu": dists.Normal(loc=-1.0, scale=2.0),
+                              "rho": dists.Uniform(a=-0.99, b=0.99),
+                              "sigma": dists.Gamma(a=2.0, b=4.0),
+                              "phi": dists.Uniform(a=-0.99, b=0.99)})
+    fk = ssp.SMC2(ssm_cls=ssms.StochVolLeverage, prior=prior, data=y,
+                  init_Nx=8, len_chain=3, ar_to_increase_Nx=ar, device="cpu")
+    return SMC(fk=fk, N=64, seed=4, ESSrmin=0.9)
+
+
+def _smc2_schedule(pf):
+    """Step ``pf`` to its end: the resample-moves, and the inner steps and
+    particle-steps its forward steps, replays and exchanges make, from its
+    resample-moves, its exchanges and its Nx after each step."""
+    fk, P = pf.fk, pf.fk.len_chain - 1
+    moves = steps = parts = 0
+    while True:
+        n_exch = len(fk.exchanges)
+        try:
+            next(pf)
+        except StopIteration:
+            return moves, steps, parts
+        t, B, Nx = pf.t - 1, pf.X.N, pf.X.xs.shape[1]
+        moves += bool(pf.rs_flag)
+        replays = P * t * bool(pf.rs_flag) + sum(
+            e[0] for e in fk.exchanges[n_exch:])
+        steps += 1 + replays
+        parts += (1 + replays) * B * Nx
+
+
+@pytest.fixture
+def one_thread():
+    """A small SMC² run is many small tensor ops: on one thread each, where
+    a thread per core makes every op wait on the others beside other test
+    workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_smc2_counts_inner_steps_replays_and_exchanges(one_thread):
+    """``smc2.inner_steps`` is T plus the length of every replay, those of
+    the moves and of the exchanges; ``smc2.inner_particle_steps`` the sum
+    of B·Nx over them."""
+    tracing.reset()
+    pf = _smc2()
+    moves, steps, parts = _smc2_schedule(pf)
+    seen = tracing.counts()
+    assert pf.fk.exchanges and seen["smc2.exchanges"] == len(
+        pf.fk.exchanges)
+    assert seen["smc2.inner_steps"] == steps
+    assert seen["smc2.inner_particle_steps"] == parts
+    assert seen["smc2.replays"] == (pf.fk.len_chain - 1) * moves + len(
+        pf.fk.exchanges)
+
+
+def test_smc2_marks_replays_the_model_and_exchanges(tmp_path, one_thread):
+    """Under a profiler the move's replays are ``particles.smc2.replay``
+    spans inside a step, each holding its inner steps and their calls into
+    the model; an exchange's replay lies inside ``particles.smc2.exchange``."""
+    pf = _smc2()
+    _, ops = _profiled(tmp_path, lambda: _steps(pf))
+    steps = _named(ops, "particles.step")
+    replays = _named(ops, "particles.smc2.replay")
+    inner = _named(ops, "particles.smc2.inner")
+    model = _named(ops, "particles.model")
+    exchanges = _named(ops, "particles.smc2.exchange")
+    assert replays and exchanges and inner and model
+    assert all(_inside(r, steps) for r in replays + exchanges)
+    for r in replays:
+        held = _within(inner, r)
+        assert held and all(_within(model, s) for s in held)
+    assert all(_within(replays, e) for e in exchanges)
+    assert all(_inside(s, steps) for s in inner)
